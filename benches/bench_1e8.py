@@ -3,8 +3,8 @@
 
 Observations are generated on-device (jax.random) so the measurement reflects
 device throughput, not the host link. On a multi-chip mesh the same code
-shards the query axis with zero collectives; on one chip it exercises the
-chunked factorized path end-to-end at scale.
+shards the query axis with zero collectives; on one device it runs the
+gather tree end-to-end at scale.
 
 Run: python benches/bench_1e8.py [--n 100000000] [--method cubic]
 """

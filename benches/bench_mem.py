@@ -1,5 +1,5 @@
 """Memory behavior of the evaluation paths (reference: benches/bench_mem.py
-with memory_profiler; here we report both host RSS and device HBM stats).
+with memory_profiler; here we report both host RSS and device memory stats).
 
 Checks the no-realloc contract: repeated preallocated-output evals must not
 grow host RSS or device memory.

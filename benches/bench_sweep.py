@@ -2,25 +2,25 @@
 
 Produces the reference's published figure families (`docs/perf.md` artifacts,
 reference `benches/bench_cpu.py:928-1010` / `:652-860` configs), extended to
-the TPU engines:
+the device path:
 
 * speedup vs dims (host path): 4-points-per-axis grids, 1-6 dimensions,
   nobs in {1, 1000}, linear + cubic + nearest, regular AND rectilinear,
   against scipy RegularGridInterpolator (same method).
-* TPU throughput vs dims: same grids, 1e6 device-resident f32 queries per
-  dimension count — the first published 5D/6D numbers.
+* device throughput vs dims: same grids, 1e6 device-resident f32 queries
+  per dimension count.
 * throughput vs nobs (host path): 3D and 4D 20-points-per-axis grids,
   nobs from 1 to 1e6, preallocated output.
 
 Results print as tables, dump to benches/sweep_results.json, and render
 SVGs into docs/. The host side uses the public dispatch policy (native CPU
-engine for host data); the TPU side times `eval_jax` on device arrays with
-the memoization-proof scan timer.
+engine for host data); the device side times `eval_jax` on device arrays
+with the scan timer (utils/profiling.device_timeit).
 
 Set INTERPN_TPU_BENCH_ONLY=1 to skip the scipy baselines (the reference's
 INTERPNPY_INTERPN_ONLY analogue). Run:
 
-    python benches/bench_sweep.py [--quick] [--host-only] [--tpu-only]
+    python benches/bench_sweep.py [--quick] [--host-only] [--device-only]
 """
 
 from __future__ import annotations
@@ -141,18 +141,18 @@ def sweep_vs_dims(max_dims=6, nobs_list=(1, 1000)):
     return rows
 
 
-def sweep_vs_dims_tpu(max_dims=6, n=1_000_000, reps=4):
+def sweep_vs_dims_device(max_dims=6, n=1_000_000, reps=4):
     """Device-path throughput at 1e6 f32 queries per dimension count."""
     import jax
 
-    if jax.default_backend() == "cpu":
-        print("== no accelerator backend; skipping TPU sweep ==", flush=True)
+    if jax.devices()[0].platform != "gpu":
+        print("== no GPU; skipping the device sweep ==", flush=True)
         return {}
     import jax.numpy as jnp
 
     from interpn_tpu.utils.profiling import device_timeit
 
-    print(f"== TPU throughput vs dims (4-point axes, {n} f32 queries) ==",
+    print(f"== device throughput vs dims (4-point axes, {n} f32 queries) ==",
           flush=True)
     rows = {}
     for ndims in range(1, max_dims + 1):
@@ -270,7 +270,7 @@ def plot_vs_dims(rows, nobs, path: Path, value="speedup"):
     print(f"wrote {path}", flush=True)
 
 
-def plot_tpu_vs_dims(rows, path: Path, n=1_000_000):
+def plot_device_vs_dims(rows, path: Path, n=1_000_000):
     plt = _plt()
     if plt is None or not rows:
         return
@@ -292,7 +292,9 @@ def plot_tpu_vs_dims(rows, path: Path, n=1_000_000):
             )
     ax.set_xlabel("dimensions")
     ax.set_ylabel("Mqueries/sec")
-    ax.set_title(f"TPU v5e, 4x...x4 grid, {n:,} f32 queries")
+    import jax
+
+    ax.set_title(f"{jax.devices()[0].device_kind}, 4x...x4 grid, {n:,} f32 queries")
     _style_ax(ax)
     ax.legend(fontsize=8, framealpha=0.9)
     path.parent.mkdir(exist_ok=True)
@@ -335,7 +337,7 @@ def plot_vs_nobs(rows_nobs, path: Path):
 def _dump(results):
     path = HERE / "sweep_results.json"
     enc = {}
-    if path.exists():  # partial runs (--host-only / --tpu-only) merge
+    if path.exists():  # partial runs (--host-only / --device-only) merge
         enc = json.loads(path.read_text())
     for section, rows in results.items():
         enc[section] = {"|".join(map(str, k)): v for k, v in rows.items()}
@@ -346,10 +348,10 @@ def _dump(results):
 if __name__ == "__main__":
     quick = "--quick" in sys.argv
     host_only = "--host-only" in sys.argv
-    tpu_only = "--tpu-only" in sys.argv
+    device_only = "--device-only" in sys.argv
     max_dims = 4 if quick else 6
     results = {}
-    if not tpu_only:
+    if not device_only:
         results["host_vs_dims"] = sweep_vs_dims(max_dims=max_dims)
         plot_vs_dims(results["host_vs_dims"], 1, DOCS / "speedup_vs_dims_1_obs.svg")
         plot_vs_dims(
@@ -361,6 +363,8 @@ if __name__ == "__main__":
         )
         plot_vs_nobs(results["host_vs_nobs"], DOCS / "throughput_vs_nobs.svg")
     if not host_only:
-        results["tpu_vs_dims"] = sweep_vs_dims_tpu(max_dims=max_dims)
-        plot_tpu_vs_dims(results["tpu_vs_dims"], DOCS / "tpu_throughput_vs_dims_1m.svg")
+        results["device_vs_dims"] = sweep_vs_dims_device(max_dims=max_dims)
+        plot_device_vs_dims(
+            results["device_vs_dims"], DOCS / "device_throughput_vs_dims_1m.svg"
+        )
     _dump(results)

@@ -1,6 +1,6 @@
 """Quality-of-fit comparison: multicubic vs scipy cubic interpolation.
 
-TPU-native analogue of the reference's `examples/cubic_comparison.py`:
+JAX analogue of the reference's `examples/cubic_comparison.py`:
 evaluates MulticubicRegular / MulticubicRectilinear on quadratic, sine, and
 step functions across interpolation and extrapolation regions, against
 scipy's RegularGridInterpolator (cubic), and writes an SVG comparison figure

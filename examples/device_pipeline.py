@@ -1,4 +1,4 @@
-"""Device-resident serving pipeline: the TPU-native way to use interpn-tpu.
+"""Device-resident serving pipeline: the device-native way to use interpn-tpu.
 
 Demonstrates the high-throughput path end to end: build an interpolator,
 precompile for the serving batch size, evaluate device-resident queries with

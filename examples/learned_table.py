@@ -9,7 +9,7 @@ optax — the classic "learned look-up table" pattern used for activation
 tables, tone-mapping curves, and calibration maps — in one `lax.scan`-
 compiled training loop.
 
-The reference library has no analogue (no autodiff); this is TPU-native
+The reference library has no analogue (no autodiff); this is a JAX-only
 surface: jit once, scan the optimizer, swap tables without retracing.
 
 Run: python examples/learned_table.py

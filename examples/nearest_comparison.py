@@ -1,6 +1,6 @@
 """Quality-of-fit figure for nearest-neighbor interpolation.
 
-TPU-native analogue of the reference's `examples/nearest_comparison.py`:
+JAX analogue of the reference's `examples/nearest_comparison.py`:
 compares NearestRectilinear against scipy's griddata(method="nearest") on a
 slightly irregular 2D rectilinear grid and writes an SVG into docs/.
 

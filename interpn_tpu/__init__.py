@@ -1,4 +1,4 @@
-"""interpn-tpu: TPU-native N-dimensional grid interpolation.
+"""interpn-tpu: N-dimensional grid interpolation in JAX.
 
 A from-scratch JAX/XLA re-design of the capabilities of jlogan03/interpn
 (multilinear / multicubic / nearest interpolation and extrapolation on regular
@@ -90,7 +90,7 @@ def interpn(
         grids: Grid axis coordinates, one array per dimension.
         vals: Values defined on the full tensor-product grid (C order).
         method: "linear", "cubic", "nearest" (reference parity), or one of
-            the TPU-native extensions with no reference analogue: "pchip"
+            the extensions with no reference analogue: "pchip"
             (monotone cubic, scipy-pchip semantics, >= 4 points per axis),
             "cubic_spline" / "quintic" (global not-a-knot tensor-product
             splines of degree 3/5, scipy RGI cubic/quintic semantics,
@@ -151,7 +151,7 @@ def interpn(
             raise ValueError("Observation points violate interpolator bounds")
 
     if method == "pchip":
-        # TPU-native extension (no reference analogue): monotone cubic with
+        # extension (no reference analogue): monotone cubic with
         # scipy-pchip semantics, held to the same input contracts as the
         # reference methods (raw-layer validators + dtype strictness).
         from .ops import pchip as _pchip
@@ -182,7 +182,7 @@ def interpn(
         return out.reshape(outshape)
 
     if method in ("cubic_spline", "quintic"):
-        # TPU-native extension (no reference analogue): global not-a-knot
+        # extension (no reference analogue): global not-a-knot
         # tensor-product splines with scipy RGI cubic/quintic semantics.
         # Coefficients are solved exactly on the host (tables are concrete
         # by the raw-layer contract); evaluation runs in the table dtype.
@@ -268,14 +268,11 @@ def interpn_stack(
 ) -> NDArray:
     """Evaluate a STACK of value tables sharing one grid at the same points.
 
-    TPU-native extension with no reference analogue (the reference binds one
-    table per interpolator, `src/interpn/multilinear_regular.py:24-212`).
-    `vals` carries the channel axis first — shape (nch, *grid_shape) or
-    (nch, prod(dims)) — and the result is (nch, *obs_shape). On TPU the
-    fused kernel evaluates all channels against ONE shared per-query weight
-    build, so a stack costs far less than nch separate evaluations
-    (docs/perf.md "Stacked-table evaluation" has measured scaling); on other
-    backends channels batch through vmap.
+    Extension with no reference analogue (the reference binds one table per
+    interpolator, `src/interpn/multilinear_regular.py:24-212`). `vals`
+    carries the channel axis first — shape (nch, *grid_shape) or
+    (nch, prod(dims)) — and the result is (nch, *obs_shape). Channels batch
+    through `jax.vmap` over one device program.
 
     Args other than `vals` match `interpn` (no `out=`: the result is a new
     (nch, ...) array).
@@ -380,13 +377,11 @@ def interpn_stack(
             ct = jnp.asarray(
                 np.ascontiguousarray(coeffs.T).astype(dtype, copy=False)
             )
-            # one shared weight build for every channel on eligible f32 TPU
-            # traces (fused stack kernel); vmapped dispatch otherwise
             out = _bspline.bspline_eval_stack(tuple(knots_j), ct, obs_j, k)
         return np.asarray(out, dtype=dtype).reshape((nch,) + outshape)
 
     vals_j = jnp.asarray(vals2)
-    vf = bool(np.isfinite(vals2).all())
+    vf = raw._vals_finite_host(dtype, vals2)
     if is_regular:
         starts = jnp.asarray(np.array([g[0] for g in grids], dtype=dtype))
         steps = jnp.asarray(np.array([g[1] - g[0] for g in grids], dtype=dtype))

@@ -1,4 +1,4 @@
-"""Ahead-of-time compiled serving artifacts (TPU-native extension).
+"""Ahead-of-time compiled serving artifacts (extension).
 
 The reference ships PGO-optimized wheels so production binaries never pay
 the profile cost at run time (`/root/reference/.github/workflows/
@@ -17,9 +17,9 @@ Design:
   smallest bucket that fits and the pad is sliced off). Bucket padding
   replicates the batch's own first coordinate, so it cannot introduce
   out-of-domain or non-finite work.
-* Engine choice is pinned at export time: the dispatcher sees the export
-  platform (`platforms=["tpu"]` exports the fused Pallas engines from any
-  host), and the chosen engine rides inside the artifact.
+* Engine choice is pinned at export time: the dispatcher picks the engine
+  while tracing, and the chosen engine rides inside the artifact
+  (`platforms=["cuda"]` exports for the GPU from any host).
 * `eval_jax` semantics (`models/_base.py:196-203`): invalid coordinates
   propagate as NaN; nothing raises per-point on device.
 
@@ -50,11 +50,9 @@ def export_eval(model, batch_sizes, *, platforms: Sequence[str] | None = None) -
         batch_sizes: one int or a sequence of ints — the observation-count
             buckets to compile. More buckets = less padding waste at serve
             time, one compiled program each.
-        platforms: lowering platforms (e.g. ["tpu"], ["cpu", "tpu"]).
-            Defaults to the current default backend. Note the ENGINE is
-            chosen by the dispatcher at trace time for the machine doing
-            the export; export on (or force INTERPN_TPU_IMPL for) the
-            platform you will serve on.
+        platforms: lowering platforms (e.g. ["cuda"], ["cpu", "cuda"]).
+            Defaults to the current default backend. The ENGINE is chosen
+            by the dispatcher at trace time (INTERPN_TPU_IMPL forces one).
 
     Returns:
         bytes — write to disk/object store; load with `aot.load`.

@@ -1,7 +1,7 @@
 """scipy.interpolate-compatible adapter layer.
 
 Drop-in equivalents of ``scipy.interpolate.RegularGridInterpolator`` and
-``scipy.interpolate.interpn`` backed by this package's TPU-native engines.
+``scipy.interpolate.interpn`` backed by this package's device engines.
 The reference library positions itself against scipy's RGI (its benchmark
 suite normalizes every number to scipy RGI throughput,
 ``/root/reference/benches/bench_cpu.py:516-523``); this module lets scipy
@@ -63,10 +63,9 @@ Deliberate deviations (documented, not accidental):
 
 Computation runs in float64 by default (matching scipy's promotion — a
 float32 ``values`` array still yields float64 output).  Pass
-``dtype=np.float32`` (an extension kwarg; scipy has none) to opt into the
-fused float32 engines: everything — grids, values, queries — is cast to
-float32 and evaluation rides the same Pallas/MXU kernels as the native
-API (~10-15x the f64 throughput on TPU, see docs/perf.md), at float32
+``dtype=np.float32`` (an extension kwarg; scipy has none) to opt into
+float32: everything — grids, values, queries — is cast to float32 and
+evaluation rides the same device engines as the native API, at float32
 accuracy (~1e-6 relative instead of ~1e-15).  The global spline methods
 still run their collocation *fit* in float64 and cast the coefficients,
 so the f32 error is evaluation-only.
@@ -171,7 +170,7 @@ class RegularGridInterpolator:
     Parameters, attributes (``grid``, ``values``, ``method``,
     ``bounds_error``, ``fill_value``), call convention, and error strings
     follow ``scipy.interpolate.RegularGridInterpolator``; evaluation runs
-    on this package's engines (Pallas/MXU on TPU, C++/XLA on CPU).
+    on this package's engines (XLA on the device, C++ or XLA on the host).
 
     Extension method ``hermite`` selects the reference library's local
     cubic Hermite scheme; the ``linearize_extrapolation`` kwarg (default
@@ -180,7 +179,7 @@ class RegularGridInterpolator:
 
     Extension kwarg ``dtype`` (default None -> float64, scipy's promotion
     rule): pass ``np.float32`` to run grids, values, queries, and output
-    in float32 on the fused f32 engines — the throughput path on TPU.
+    in float32 on the device engines.
     The spline methods' collocation fit stays float64; only evaluation is
     cast.  Output dtype follows the choice.
     """
@@ -302,7 +301,7 @@ class RegularGridInterpolator:
             if self._dtype == np.float32:
                 # fit ran float64 (prep_bspline casts internally); cast only
                 # the evaluation-side arrays so the f32 error is eval-only
-                # and the engine dispatch sees f32 coeffs -> fused Pallas
+                # and the evaluation runs on f32 coefficients
                 knots, coeffs = sp
                 sp = (
                     [np.asarray(t, dtype=np.float32) for t in knots],

@@ -6,28 +6,24 @@ disables 64-bit types by default, so we enable x64 mode at import unless the
 user opts out with INTERPN_TPU_NO_X64=1. All interpn-tpu code paths pass
 explicit dtypes everywhere, so enabling x64 only *allows* f64 — it does not
 change the dtype of any interpn-tpu result.
-
-On TPU, float64 is software-emulated and slow; use float32 inputs for
-throughput-critical workloads (the f32 code path is identical).
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import jax
 
 
+@functools.cache
 def host_feature_tag() -> str:
     """Short fingerprint of this host's CPU feature set (plus jaxlib).
 
-    XLA:CPU AOT-caches executables compiled for the exact host ISA features;
-    loading them on a host lacking those features is unsafe (the
-    ``cpu_aot_loader`` "could lead to execution errors such as SIGILL"
-    warning wall). Keying the default persistent-cache path by this tag
-    turns cross-host artifact reuse into a clean cache MISS instead of a
-    hazard, and makes the warmed artifact (scripts/warm_cache.py)
-    self-describing about the host it is valid for."""
+    Native code compiled with ``-march=native`` (``interpn_tpu.native``) is
+    only safe on a host with the same ISA features: loading it elsewhere can
+    end in SIGILL. Keying the build's file name by this tag turns a build
+    copied from another host into a rebuild instead of a hazard."""
     import hashlib
     import platform
 
@@ -44,41 +40,37 @@ def host_feature_tag() -> str:
     return hashlib.blake2b("|".join(feats).encode(), digest_size=6).hexdigest()
 
 
+# Fixed persistent-cache path inside the checkout (listed in .gitignore):
+# the path is part of the cache key, so it must not move between processes.
+DEFAULT_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
+
+
 def _setup() -> None:
     if os.environ.get("INTERPN_TPU_NO_X64", "0") not in ("1", "true", "True"):
         jax.config.update("jax_enable_x64", True)
 
-    # Persistent XLA compilation cache: first-compile of the large-batch TPU
-    # executables can take tens of seconds; caching makes every subsequent
-    # process start instant. (The TPU-native replacement for the reference's
-    # PGO pipeline: instead of profile-guided re-compilation, ahead-of-time
-    # compiled executables are cached and reused — see scripts/warm_cache.py.)
-    # The default path is keyed by the host feature tag; an explicit
-    # INTERPN_TPU_CACHE_DIR is honored verbatim (the user owns the risk).
-    cache_dir = os.environ.get("INTERPN_TPU_CACHE_DIR")
-    if cache_dir is None:
-        # The persistent cache is a TPU/PGO deployment artifact. XLA:CPU AOT
-        # entries warn spuriously on load even same-host (tuning
-        # pseudo-features like +prefer-no-gather never appear in the
-        # loader's feature probe), so a process pinned to CPU before import
-        # skips the default cache; an explicit INTERPN_TPU_CACHE_DIR still
-        # opts in.
-        if (getattr(jax.config, "jax_platforms", None) or "") == "cpu":
-            return
-        cache_dir = os.path.expanduser(
-            os.path.join("~/.cache/interpn_tpu_xla", host_feature_tag())
-        )
-    if cache_dir and cache_dir != "0":
-        try:
-            jax.config.update("jax_compilation_cache_dir", cache_dir)
-            jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-        except Exception:
-            pass
+    # Persistent XLA compilation cache: first compiles of large-batch
+    # executables take seconds, and a warm cache makes later processes
+    # start without them (see scripts/warm_cache.py). JAX itself reads
+    # JAX_COMPILATION_CACHE_DIR; when it is set this module sets no other.
+    # A process pinned to the CPU before import skips the default cache:
+    # XLA:CPU AOT entries warn spuriously on load even on the same host.
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return
+    if (getattr(jax.config, "jax_platforms", None) or "") == "cpu":
+        return
+    try:
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_CACHE_DIR)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    except Exception:
+        pass
 
 
 _setup()
 
 # Index dtype used for all cell-location and gather arithmetic. Grids are
-# bounded well below 2^31 elements, and int32 index math is significantly
-# faster than int64 on TPU.
+# bounded well below 2^31 elements, so int32 indices suffice and halve the
+# index traffic of int64.
 INDEX_DTYPE = "int32"

@@ -4,7 +4,7 @@ boundaries.
 The pydantic model classes (reference parity,
 ``/root/reference/src/interpn/multilinear_regular.py:24-212``) hold numpy
 state and cannot be passed through ``jit`` / ``vmap`` / ``scan``.
-:class:`JaxInterpolator` is the TPU-native complement: a registered pytree
+:class:`JaxInterpolator` is the transform-friendly complement: a registered pytree
 whose *arrays are leaves* (grid coordinates and the value table) and whose
 configuration (method, grid kind, dims, extrapolation mode) is static
 structure. That buys, with no new kernel code:
@@ -19,12 +19,11 @@ structure. That buys, with no new kernel code:
 * **scan / checkpoint / shard_map** — interpolators ride in carries and
   closures like any other pytree.
 * **autodiff** — gradients flow into the value table and the observation
-  points through the same custom-JVP routing the dispatch layer installs
-  for the Pallas engines (``ops/dispatch.py``).
+  points through the gather tree, which differentiates natively.
 
 Evaluation goes through :mod:`interpn_tpu.ops.dispatch`, so engine
-selection (gather tree / factorized MXU / fused Pallas / double-float /
-int8 MXU) is identical to the model classes' device path.
+selection (gather tree / factorized) is identical to the model classes'
+device path.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Persistent, serializable interpolator models (pydantic).
 
 One class per reference wrapper (`src/interpn/*.py`), with byte-identical
-JSON round-trip and TPU-native evaluation.
+JSON round-trip and device evaluation.
 """
 
 from .multicubic_rectilinear import MulticubicRectilinear

@@ -5,10 +5,10 @@ Each concrete class mirrors one reference wrapper
 the grid definition, with `.new()`, `.eval()`, `.eval_unchecked()`,
 `.check_bounds()` and byte-identical JSON round-trip.
 
-TPU-native extensions beyond the reference API:
+Extensions beyond the reference API:
 
 * `.eval_jax(obs)` — evaluate device-resident observation arrays and return a
-  device array without any host round-trip (the hot path for TPU callers).
+  device array without any host round-trip (the hot path for device callers).
 * Grid constants (starts/steps/vals or grids/vals) are device-cached lazily on
   first eval, so repeated `.eval()` calls only transfer the query points,
   preserving the reference's "zero work per call beyond the points" contract.
@@ -185,16 +185,13 @@ class InterpolatorBase(BaseModel):
         (reference parity: bisection instead of an isize cast).
 
         eval_jax discards the flag but still pays for it: one extra
-        elementwise+reduce pass over obs that cannot fuse into the pallas
-        custom call. Measured cost ~0.5% of the 3D 1M-query kernel (~15 us
-        of obs re-read vs 3.4 ms of kernel — the fused engine is not
-        HBM-bound at this shape), which is not worth a second compiled
-        executable per shape."""
+        elementwise+reduce pass over obs, kept rather than compiling a
+        second executable per shape."""
         res = self._eval_device(dev, obs_j)
         return res if isinstance(res, tuple) else (res, None)
 
     def eval_jax(self, obs) -> jax.Array:
-        """Evaluate on device and return a device array (TPU-native fast
+        """Evaluate on device and return a device array (device fast
         path; not part of the reference API). Unlike eval(), this never
         raises on NaN/inf coordinates — blocking on a device flag would
         break async dispatch; invalid coordinates propagate as NaN in the
@@ -222,7 +219,7 @@ class InterpolatorBase(BaseModel):
 
     def gradient_jax(self, obs):
         """Partial derivatives of the interpolant at each observation point
-        (TPU-native extension; the reference has no derivative API).
+        (extension; the reference has no derivative API).
 
         Returns a tuple of ndims device arrays, each shaped like obs[0]:
         d(interpolant)/d(x_k). Computed with one forward-mode JVP per
@@ -346,7 +343,7 @@ class RegularGridMixin:
         steps = jnp.asarray(self.steps.data)
         vals = jnp.asarray(self.vals.data)
         # One-time host-side finiteness check: inf/NaN sentinels in the grid
-        # disable the factorized MXU path (see ops.dispatch._vals_finite).
+        # keep a forced factorized engine off this table (ops.dispatch).
         finite = bool(np.isfinite(self.vals.data).all())
         return (dims, starts, steps, vals, finite)
 

@@ -84,11 +84,6 @@ class MulticubicRectilinear(RectilinearGridMixin, InterpolatorBase):
 
     def _eval_device(self, dev, obs_j):
         grids, vals, finite = dev
-        i8 = raw._try_i8_rectilinear(
-            grids, vals, obs_j, "cubic", bool(self.linearize_extrapolation)
-        )
-        if i8 is not None:
-            return i8
         return raw._cubic_rectilinear(
             grids, vals, obs_j, bool(self.linearize_extrapolation), finite
         )

@@ -97,12 +97,6 @@ class MulticubicRegular(RegularGridMixin, InterpolatorBase):
 
     def _eval_device(self, dev, obs_j):
         dims, starts, steps, vals, finite = dev
-        i8 = raw._try_i8_regular(
-            dims, starts, steps, vals, obs_j, "cubic",
-            bool(self.linearize_extrapolation),
-        )
-        if i8 is not None:
-            return i8
         return raw._cubic_regular(
             dims, starts, steps, vals, obs_j, bool(self.linearize_extrapolation),
             finite,

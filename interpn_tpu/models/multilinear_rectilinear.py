@@ -71,9 +71,6 @@ class MultilinearRectilinear(RectilinearGridMixin, InterpolatorBase):
 
     def _eval_device(self, dev, obs_j):
         grids, vals, finite = dev
-        i8 = raw._try_i8_rectilinear(grids, vals, obs_j, "linear")
-        if i8 is not None:
-            return i8
         return raw._linear_rectilinear(grids, vals, obs_j, finite)
 
     def _prepare_native(self):

@@ -2,7 +2,7 @@
 
 API, validation messages, and JSON schema match the reference
 `src/interpn/multilinear_regular.py:24-212`; evaluation runs the batched
-TPU-native kernel `interpn_tpu.ops.linear_regular`.
+device kernel `interpn_tpu.ops.linear_regular`.
 """
 
 from __future__ import annotations
@@ -78,11 +78,6 @@ class MultilinearRegular(RegularGridMixin, InterpolatorBase):
 
     def _eval_device(self, dev, obs_j):
         dims, starts, steps, vals, finite = dev
-        # int8 MXU f64 engine: eager-only (needs concrete vals) — see
-        # raw._i8_eligible
-        i8 = raw._try_i8_regular(dims, starts, steps, vals, obs_j, "linear")
-        if i8 is not None:
-            return i8
         return raw._linear_regular(dims, starts, steps, vals, obs_j, finite)
 
     def _prepare_native(self):

@@ -1,15 +1,17 @@
 """ctypes bindings + build machinery for the native CPU kernels.
 
-The shared library is built on first use with g++ (no pybind11 in this image;
-the extern-C + ctypes route keeps the binding layer dependency-free). The
-build is cached next to the source and keyed on the source hash.
+The shared library is built on first use with g++ (the extern-C + ctypes
+route keeps the binding layer dependency-free). The build is cached next to
+the source, keyed on the source hash and on the host's CPU feature tag
+(`config.host_feature_tag`): it is compiled with -march=native, so a build
+copied from another host is rebuilt, never loaded.
 
-Dispatch policy: by default ALL host-resident (numpy) batches route here —
-measured end-to-end, the native kernels beat the full host->device->host
-round trip at every size on this system, and device-resident callers use the
-JAX API directly. INTERPN_TPU_NATIVE=0 disables the native path entirely;
+Dispatch policy: by default ALL host-resident (numpy) batches route here,
+and device-resident callers use the JAX API directly. The crossover against
+the host->device->host round trip to a GPU is not measured.
+INTERPN_TPU_NATIVE=0 disables the native path entirely;
 INTERPN_TPU_NATIVE_THRESHOLD=<n> restores a size crossover to the device
-path for deployments with fast host<->device links.
+path.
 
 Call-overhead design: all pointer arguments are passed as raw integers
 (`ndarray.ctypes.data`) into `c_void_p` slots — bypassing the expensive
@@ -32,10 +34,9 @@ _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "interpn_native.cpp"
 
 # Optional crossover: if set, batches >= this size go to the device path.
-# Unset (default), ALL host-resident (numpy) batches use the native path:
-# measured end-to-end, the native kernels outperform the full host->device->
-# host round trip at every size in this environment, and device-resident
-# callers use the JAX API directly anyway.
+# Unset (default), ALL host-resident (numpy) batches use the native path
+# (the crossover is not measured against a GPU round trip), and
+# device-resident callers use the JAX API directly anyway.
 _THRESHOLD_ENV = os.environ.get("INTERPN_TPU_NATIVE_THRESHOLD")
 NATIVE_THRESHOLD = int(_THRESHOLD_ENV) if _THRESHOLD_ENV else None
 
@@ -48,10 +49,19 @@ _INT = ctypes.c_int
 _DBL = ctypes.c_double
 
 
+def _build_tag(src: bytes) -> str:
+    """Build key: the source hash plus the host's CPU feature tag."""
+    from ..config import host_feature_tag
+
+    return f"{hashlib.sha256(src).hexdigest()[:16]}_{host_feature_tag()}"
+
+
+def _lib_path() -> Path:
+    return _DIR / f"libinterpn_native_{_build_tag(_SRC.read_bytes())}.so"
+
+
 def _build() -> Path | None:
-    src = _SRC.read_text()
-    tag = hashlib.sha256(src.encode()).hexdigest()[:16]
-    out = _DIR / f"libinterpn_native_{tag}.so"
+    out = _lib_path()
     if out.exists():
         return out
     # -ffp-contract=fast: allow FMA contraction, matching the reference's
@@ -79,9 +89,7 @@ def _load():
     # transient =0 never bakes in) — but a g++ compile is NOT harmless:
     # with the backend disabled and no cached build on disk, skip the
     # build WITHOUT memoizing, so flipping the env back on re-attempts.
-    src = _SRC.read_text()
-    tag = hashlib.sha256(src.encode()).hexdigest()[:16]
-    if _native_mode() == "0" and not (_DIR / f"libinterpn_native_{tag}.so").exists():
+    if _native_mode() == "0" and not _lib_path().exists():
         return None
     _tried = True
     path = _build()
@@ -113,8 +121,7 @@ def _load_fastcall():
     if not src.exists():  # source not shipped: ctypes path still works
         _fastcall_tried = True
         return None
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    so = _DIR / f"_interpn_fastcall_{tag}.so"
+    so = _DIR / f"_interpn_fastcall_{_build_tag(src.read_bytes())}.so"
     if _native_mode() == "0" and not so.exists():
         return None  # disabled + unbuilt: skip the compile, don't memoize
     _fastcall_tried = True

@@ -1,6 +1,6 @@
 // Native CPU kernels for interpn-tpu.
 //
-// Role: the latency path. The TPU path (JAX/XLA) wins on throughput for large
+// Role: the latency path. The device path (JAX/XLA) serves large
 // query batches, but a single dispatch through the runtime costs tens of
 // microseconds — the reference's headline small-batch numbers (1..1000 points,
 // BASELINE.md "1 obs" rows) are won or lost on call latency. This library
@@ -15,8 +15,8 @@
 //    instantiation (the compile-time-specialization role of the reference's
 //    const generics, done the C++ way).
 //  * The corner stencil walk indexes vertices by bit/digit pattern, matching
-//    the vertex ordering used by the TPU kernels. CUBIC reduces through the
-//    same 4^N value tree as the reference/TPU paths (operation-order
+//    the vertex ordering used by the JAX kernels. CUBIC reduces through the
+//    same 4^N value tree as the reference/JAX paths (operation-order
 //    agreement to the last ulp — the weight-product form measured ~2 digits
 //    worse under deep non-linearized f32 extrapolation, see dispatch_cubic).
 //    LINEAR uses a 2^N weight-product accumulation instead of the repeated

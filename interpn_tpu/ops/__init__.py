@@ -1,7 +1,7 @@
-"""Batched TPU-native interpolation kernels (pure JAX / XLA).
+"""Batched interpolation kernels (pure JAX / XLA).
 
 The exported names dispatch between two implementations per family (gather
-tree vs factorized MXU contraction, see `ops/dispatch.py`); the underlying
+tree vs factorized contraction, see `ops/dispatch.py`); the underlying
 implementations remain importable from their submodules (`ops.linear`,
 `ops.cubic`, `ops.nearest`, `ops.factorized`). `raw` wraps these with the
 reference-compatible flat API and `interpn_tpu.models` with the persistent

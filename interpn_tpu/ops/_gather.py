@@ -6,10 +6,10 @@ gathers skip XLA's bounds clamping — `jnp.take` in current JAX does not expose
 PROMISE_IN_BOUNDS, but the `.at[].get` API does.
 
 Corner stencils are fetched as one flat (n,) gather per vertex rather than a
-single (n, 2^N)-shaped gather: on the TPU backend, multi-dimensional gathers
-compile in time proportional to the total index count (~0.5 ms/index — minutes
-for 1M queries), while flat gathers with constant offsets compile in
-milliseconds and fuse into the downstream elementwise tree.
+single (n, 2^N)-shaped gather: flat gathers with constant offsets fuse into
+the downstream elementwise tree. The layout was chosen on a TPU, whose
+compiler took time proportional to the index count for multi-dimensional
+gathers; which layout is faster on a GPU is not measured.
 """
 
 from __future__ import annotations
@@ -25,22 +25,19 @@ def take1(vals, idx):
     return jnp.asarray(vals).at[idx].get(mode="promise_in_bounds")
 
 
-# XLA:TPU lowers per-query dynamic takes at gather speed (~19 Mq/s for 1M
-# queries) once the source array exceeds one 64-lane vreg row; at or below
-# 64 entries they lower as fast vectorized selects. The one-hot select-sum
-# below stays vectorized at every size (measured ~900 Mq/s at 104 entries,
-# ~370 at 256, ~60 at 16384 — the compare_all-searchsorted scaling, same
-# broadcast-reduce shape), overtaking the gather lowering everywhere in
-# the grid-axis size range. Above _TAKE_ONEHOT_MAX the O(len) per-query
-# compares would lose to the gather, so plain take resumes (value-table
-# gathers also keep take1 directly: tables reach 1e6+ entries).
+# Small per-axis arrays (65.._TAKE_ONEHOT_MAX entries) are read with a
+# branch-free one-hot select-sum instead of a gather; at or below 64 entries
+# and above the cap, plain take. These thresholds were set on a TPU, whose
+# gather lowering was slow for such arrays; they are not measured on the
+# GPU. Above the cap the O(len) per-query compares would lose to a gather
+# anyway (value-table gathers keep take1 directly: tables reach 1e6+).
 _TAKE_ONEHOT_MAX = 4096
 
 
 def take_small(vals, idx):
-    """vals[idx] for flat `vals` and 1-D in-bounds `idx`, routed around the
-    TPU gather cliff: plain take at <= 64 entries (fast select regime) and
-    above _TAKE_ONEHOT_MAX, a branch-free one-hot select-sum between."""
+    """vals[idx] for flat `vals` and 1-D in-bounds `idx`: plain take at
+    <= 64 entries and above _TAKE_ONEHOT_MAX, a branch-free one-hot
+    select-sum between."""
     vals = jnp.asarray(vals)
     n = int(vals.shape[0])
     if n <= 64 or n > _TAKE_ONEHOT_MAX or getattr(idx, "ndim", 1) != 1:
@@ -72,9 +69,7 @@ def gather_corners_matrix(vals, base, dims, footprint: int):
     """Fetch the corner stencil as one (n_verts, n) array, vertex-major.
 
     Used for the large-stencil tail (cubic 5-8D): a single batched gather
-    keeps the traced program small at the cost of the TPU backend's slow
-    compilation for multi-dimensional gathers — acceptable for these rare
-    configurations, and free on CPU."""
+    keeps the traced program small for these rare configurations."""
     offs = jnp.asarray(corner_offsets(dims, footprint))
     idx = offs[:, None] + base[None, :]
     return take1(vals, idx)

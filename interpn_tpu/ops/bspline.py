@@ -25,8 +25,8 @@ Semantics match scipy 1.17 (probed, not copied):
 
 The split mirrors the package's other engines: table preparation (the banded
 collocation solves) runs ONCE on host numpy — tables are concrete by
-contract, and a per-axis direct solve is sequential work the TPU is wrong
-for — while evaluation is a batched JAX program: per-axis span location +
+contract, and a per-axis direct solve is sequential work an accelerator is
+wrong for — while evaluation is a batched JAX program: per-axis span location +
 vectorized Cox-de Boor weights, then the ``(k+1)^N`` flat-gather stencil
 tree of `ops/_gather.py` reduced with separable weights (the same shape as
 the multicubic tree, so it vectorizes, jits, and shards identically).
@@ -134,7 +134,7 @@ def prep_bspline(grids, vals, k: int):
 
 # Prepared-coefficient cache: one-shot callers (`interpn(method=...)`, the
 # scipy adapter) re-present the same concrete table every call; keying the
-# collocation solve by CONTENT (like ops.pallas_i8's prep caches) makes
+# collocation solve by CONTENT makes
 # repeat evaluation pay only the device eval. Host arrays hash; keys also
 # cover the grids, so reshaped/reused tables on different axes miss safely.
 _PREP_CACHE: dict = {}
@@ -180,8 +180,8 @@ def _basis_weights(t, span, x, k: int):
 
     `t` is the knot array, `span` int32 per query (clamped to [k, n-1]),
     `x` the query coordinates.  Knot accesses are flat 1-D takes of a tiny
-    array (per-query span offsets -k+1..k), which the TPU backend compiles
-    cheaply — never a multi-dimensional gather."""
+    array (per-query span offsets -k+1..k), never a multi-dimensional
+    gather."""
     tk = {off: take_small(t, span + off) for off in range(-k + 1, k + 1)}
     N = [jnp.ones_like(x)] + [jnp.zeros_like(x) for _ in range(k)]
     for j in range(1, k + 1):
@@ -199,10 +199,8 @@ def spline_locs_weights(knots, obs, k: int):
     """Per-axis (loc, [w_0..w_k]) for the tensor-product spline: the de
     Boor span clamped to [k, n-1] (out-of-bounds queries extrapolate the
     end span's polynomial), rebased to the coefficient index `span - k`,
-    and the k+1 nonzero Cox-de Boor basis values. This is the SAME
-    located-stencil shape the linear/cubic engines consume, so every
-    contraction engine (gather tree, fused Pallas, double-float) plugs in
-    the same way."""
+    and the k+1 nonzero Cox-de Boor basis values: the same located-stencil
+    shape the linear/cubic gather trees consume."""
     out = []
     for ax, t in enumerate(knots):
         t = jnp.asarray(t)
@@ -216,23 +214,12 @@ def spline_locs_weights(knots, obs, k: int):
 
 
 def bspline_eval(knots, coeffs, obs, k: int):
-    """Tensor-product B-spline evaluation with engine dispatch.
+    """Tensor-product B-spline evaluation through the gather stencil tree.
 
     knots: per-axis not-a-knot knot arrays (length n_i + k + 1); coeffs:
     flat C-order coefficient table from :func:`prep_bspline`; obs: per-axis
     query arrays.  Extrapolates the end-span polynomial out of bounds.
-
-    Engine selection mirrors ops.dispatch: the spline is LINEAR in the
-    coefficients with separable per-axis weights — exactly the shape the
-    fused engines exploit — so eligible f32 TPU traces run the fused
-    Pallas contraction (pallas_v3's precomputed-weights kernel) and f64
-    runs the double-float VPU engine (pallas_df64), both wrapped in
-    custom_jvp with gather-tree tangents. Everything else (CPU, tracers
-    under vmap/AD, over-cap grids, small batches) takes the flat-gather
-    stencil tree below."""
-    engine = _spline_engine(knots, coeffs, obs, k)
-    if engine is not None:
-        return engine(knots, coeffs, obs, k)
+    Large stencils on flat query batches are evaluated in query chunks."""
     ndims = len(knots)
     nverts = (k + 1) ** ndims
     if nverts > LIST_MAX_VERTS and getattr(obs[0], "ndim", 1) == 1:
@@ -245,125 +232,11 @@ def bspline_eval(knots, coeffs, obs, k: int):
 
 def bspline_eval_stack(knots, coeffs_stack, obs, k: int):
     """Evaluate an (nch, prod(dims)) STACK of coefficient tables sharing
-    one knot set at the same points -> (nch, n).
-
-    Eligible f32 TPU traces fuse all channels behind ONE Cox-de Boor
-    weight build (`pallas_v3.eval_bspline_stack`, mirroring the core
-    families' stack kernels); everything else vmaps the single-table
-    evaluation, which itself dispatches (the f64 double-float engine has
-    no stack kernel — its channel cost is the contraction, not the weight
-    build, so vmap loses nothing structural there)."""
-    import os
-
+    one knot set at the same points -> (nch, n): `jax.vmap` of
+    :func:`bspline_eval` over the channel axis."""
     import jax
 
-    from . import dispatch as _dispatch
-
-    obs0 = obs[0]
-    mode = os.environ.get("INTERPN_TPU_IMPL", "auto")
-    dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
-    nch = int(coeffs_stack.shape[0])
-    if (
-        mode in ("auto", "pallas")
-        and getattr(obs0, "ndim", 1) == 1
-        and jax.default_backend() == "tpu"
-        and _dispatch._plain_trace(obs0)
-        and _dispatch._plain_trace(coeffs_stack)
-        and jnp.asarray(coeffs_stack).dtype == jnp.float32
-        and (mode == "pallas" or obs0.size >= _dispatch.MIN_PALLAS_QUERIES)
-        and (
-            mode == "pallas"
-            or np.prod(dims) <= _dispatch.MAX_PALLAS_GRID["cubic"]
-        )
-    ):
-        from . import pallas_v3 as _pv3
-
-        if _pv3.supported_stack(dims, nch, jnp.float32, f"bspline{k}"):
-            ng = len(knots)
-
-            def prim(*a):
-                return _pv3.eval_bspline_stack(
-                    a[:ng], a[ng], a[ng + 1:], k, _dispatch._pallas_passes()
-                )
-
-            def gat(*a):
-                return jax.vmap(
-                    lambda c: _bspline_gather(a[:ng], c, a[ng + 1:], k)
-                )(a[ng])
-
-            return _dispatch._with_gather_jvp(prim, gat)(
-                *knots, coeffs_stack, *obs
-            )
     return jax.vmap(lambda c: bspline_eval(knots, c, obs, k))(coeffs_stack)
-
-
-def _spline_engine(knots, coeffs, obs, k: int):
-    """The fused-engine route for this trace, or None for the gather tree."""
-    import os
-
-    import jax
-
-    mode = os.environ.get("INTERPN_TPU_IMPL", "auto")
-    if mode in ("gather", "factorized"):
-        return None
-    from . import dispatch as _dispatch
-
-    obs0 = obs[0]
-    if (
-        getattr(obs0, "ndim", 1) != 1
-        or jax.default_backend() != "tpu"
-        or not _dispatch._plain_trace(obs0)
-        or not _dispatch._plain_trace(coeffs)
-    ):
-        return None
-    if mode != "pallas" and obs0.size < _dispatch.MIN_PALLAS_QUERIES:
-        return None
-    dims = tuple(int(t.shape[0]) - k - 1 for t in knots)
-    dtype = jnp.asarray(coeffs).dtype
-    if dtype == jnp.float32:
-        from . import pallas_v3 as _pv3
-
-        if not _pv3.supported(dims, jnp.float32, f"bspline{k}"):
-            return None
-        if mode != "pallas" and np.prod(dims) > _dispatch.MAX_PALLAS_GRID["cubic"]:
-            return None
-
-        def run(kn, cf, ob, kk):
-            ng = len(kn)
-            prim = lambda *a: _pv3.eval_bspline(
-                a[:ng], a[ng], a[ng + 1:], kk, _dispatch._pallas_passes()
-            )
-            gat = lambda *a: _bspline_gather(a[:ng], a[ng], a[ng + 1:], kk)
-            return _dispatch._with_gather_jvp(prim, gat)(*kn, cf, *ob)
-
-        return run
-    if dtype == jnp.float64 and mode != "pallas":
-        from . import pallas_df64 as _pdf
-
-        if not _pdf.supported(dims, f"bspline{k}"):
-            return None
-
-        def run(kn, cf, ob, kk):
-            ng = len(kn)
-            prim = lambda *a: _pdf.eval_bspline(a[:ng], a[ng], a[ng + 1:], kk)
-            gat = lambda *a: _bspline_gather(a[:ng], a[ng], a[ng + 1:], kk)
-            return _dispatch._with_gather_jvp(prim, gat)(*kn, cf, *ob)
-
-        return run
-    return None
-
-
-def _bspline_gather(knots, coeffs, obs, k: int):
-    """The gather-tree evaluation (chunked), used directly and as the
-    differentiable tangent path for the fused engines."""
-    ndims = len(knots)
-    nverts = (k + 1) ** ndims
-    if nverts > LIST_MAX_VERTS and getattr(obs[0], "ndim", 1) == 1:
-        return chunk_queries(
-            lambda ob: _bspline_impl(knots, coeffs, ob, k),
-            obs, nverts, jnp.asarray(coeffs).dtype.itemsize,
-        )
-    return _bspline_impl(knots, coeffs, obs, k)
 
 
 def _bspline_impl(knots, coeffs, obs, k: int):

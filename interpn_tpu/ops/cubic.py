@@ -1,12 +1,12 @@
 """Multicubic (Hermite) interpolation/extrapolation, batched over queries.
 
-TPU-native re-design of the reference's cubic kernels
+Batched re-design of the reference's cubic kernels
 (`src/multicubic/regular.rs:325-623`, `src/multicubic/rectilinear.rs:265-545`,
 shared math `src/multicubic/mod.rs:68-117`):
 
 * The 4^N stencil is fetched as one flat gather per vertex with a
-  compile-time-constant offset (see `ops/_gather.py` for why this shape is
-  the fast one on TPU), ordered by the reference's base-4 digit pattern.
+  compile-time-constant offset (see `ops/_gather.py` for this layout),
+  ordered by the reference's base-4 digit pattern.
 * The per-axis Hermite evaluation — the reference's 5-way `Saturation` match —
   is flattened into branchless `where`-selects. All five cases share the same
   `normalized_hermite_spline` shape; only (t, y0, dy, k0, k1) differ:

@@ -1,50 +1,29 @@
-"""Implementation selection: gather-tree vs factorized-MXU vs fused Pallas
-vs the two f64 contraction engines.
+"""Engine selection: the gather tree or the factorized contraction.
 
-Five device implementations cover every method x grid-kind family:
+Two device implementations cover every method x grid-kind family:
 
-* `gather` (ops.linear / ops.cubic / ops.nearest): per-vertex flat gathers +
-  tree reduction. Matches the reference's evaluation order; the only choice
-  for f64 (TPU emulates f64 arithmetic as float-float, and emulated matmuls
-  are ~400x slower than f32, so the contraction paths are a loss there) and
-  for grids too large for the others.
+* `gather` (ops.linear / ops.cubic / ops.nearest): per-vertex flat gathers
+  + tree reduction. Matches the reference's evaluation order, touches only
+  the stencil, and differentiates and batches natively.
 * `factorized` (ops.factorized): per-axis dense weight matrices contracted
-  on the MXU via XLA einsums. Covers regular AND rectilinear grids; bound by
-  the HBM traffic of its inter-stage temporaries.
-* `pallas` (ops.pallas_v3): the factorized math fused per query tile in
-  VMEM (grouped MXU contraction + segment-sum tail, split-bf16 products).
-  Regular AND rectilinear grids, f32, 2-8D, table <= VMEM. Fastest engine
-  at every measured shape (docs/perf.md): 1.1-2x over `factorized`, up to
-  9x over gather on large grids, 64x for rectilinear cubic.
+  with XLA einsums. It costs 2*n*prod(dims) FLOPs per call, and one
+  non-finite table value poisons every query (0 * inf = nan).
 
-* f64 contraction engines: `df64` (ops.pallas_df64 — compensated-f32
-  double-float on the VPU, any supported shape) and `i8`
-  (ops.pallas_i8 — exact-int32 int8 multipass on the MXU, same ~2^-47
-  accuracy class at 19-46x the gather rate; needs a concrete,
-  non-spiky table). Beyond its hardware-validated regime the i8 engine
-  self-gates on a padded-volume cost model vs the gather tree
-  (pallas_i8.supported), which admits e.g. 50^3-64^3 and 17^5 cubic
-  f64 but keeps 100^3 and all large-grid linear on gather.
-
-Selection happens at trace time from static information (dtype, grid size,
-query count, backend). Overrides: INTERPN_TPU_IMPL=gather|factorized|pallas,
-INTERPN_TPU_F64=auto|df64|i8, INTERPN_TPU_PRECISION=exact (default: 6-pass
-f32-exact contraction) | split (4 one-pass bf16 matmuls on row-centered
-tables) | fast (3) — see ops/pallas_v3.py for the accuracy ladder.
+Auto selection is the gather tree. The choice is made at trace time from
+what the call carries (the override and the table's finiteness), never
+from the backend's name. `INTERPN_TPU_IMPL=gather|factorized` forces an
+engine; a forced factorized call whose table holds inf/NaN still runs the
+gather tree, so the override changes speed and never the result.
 """
 
 from __future__ import annotations
 
-import math
 import os
 
 import jax
 import jax.numpy as jnp
 
 from . import factorized as _fz
-from . import pallas_df64 as _pdf
-from . import pallas_i8 as _pi8
-from . import pallas_v3 as _pv3
 from .cubic import cubic_rectilinear as _cubic_rect_gather
 from .cubic import cubic_regular as _cubic_reg_gather
 from .linear import linear_rectilinear as _linear_rect_gather
@@ -52,98 +31,25 @@ from .linear import linear_regular as _linear_reg_gather
 from .nearest import nearest_rectilinear as _nearest_rect_gather
 from .nearest import nearest_regular as _nearest_reg_gather
 
-# Factorized pays 2*n*prod(dims) FLOPs; past this grid size the gather path
-# wins even on TPU.
-MAX_FACTORIZED_GRID = 1 << 18
-# Below this query count the call is latency-bound either way.
-MIN_FACTORIZED_QUERIES = 32_768
-# The fused Pallas engine pads to its query-tile size (>= 128), so it is
-# already efficient at much smaller batches than the XLA factorized path
-# (whose chunking/einsum overheads only amortize past ~32k); gather cubic
-# at 2 Mq/s would cost 5 ms for a 10k-query device batch.
-MIN_PALLAS_QUERIES = 1024
-# Per-method grid-size ceilings for the fused Pallas engine on REGULAR
-# grids, from measured crossovers vs the gather path on v5e (docs/perf.md):
-# the contraction pays ~2 * prod(dims) MACs per query per pass, the gather
-# path is roughly grid-size independent (cubic 1.8 Mq/s -> crossover far
-# above the VMEM cap; linear 16 Mq/s -> ~768k cells; nearest fetches ONE
-# element per query at 93 Mq/s, so only benchmark-sized grids win).
-# RECTILINEAR gather pays a bisection per point on top (linear 3.4 / cubic
-# 1.2 / nearest 4.3 Mq/s on a 100^3 grid), so pallas wins at every size it
-# supports, for every method.
-MAX_PALLAS_GRID = {
-    "cubic": 1 << 21,  # effectively the VMEM cap in pallas_v3.supported
-    "linear": 3 << 18,
-    # nearest gather fetches ONE element/query at 93 Mq/s; the pallas
-    # kernel runs 567 Mq/s on an 8k-cell grid but its cost grows with
-    # prod(dims) — cap at the measured ~50k-cell crossover (v5e,
-    # benches/exp_v3.py; re-checked round 3)
-    "nearest": 50_000,
-}
-MAX_PALLAS_GRID_RECT = 1 << 21
+IMPL_MODES = ("auto", "gather", "factorized")
 
 
-def _prefer_i8(dims, method: str) -> bool:
-    """MXU-vs-VPU choice between the two f64 engines, from v5e measurement
-    (benches/exp_i8_engine.py): the int8 engine beat the double-float VPU
-    engine at EVERY measured shape from 8000 cells up (20^3 cubic 21.1 vs
-    15.6 Mq/s, 20^4 9.7 vs 0.8 — the VPU engine pays ~21 plane-ops per
-    CELL, the MXU engine 35 int8 passes over the 128-PADDED block, ~40x
-    the arithmetic rate). Below ~4k cells both engines are padded-block /
-    tile-overhead bound and far faster than any caller needs; the VPU
-    engine keeps those (smaller first-compile, no table decomposition)."""
-    if os.environ.get("INTERPN_TPU_F64") == "i8":
-        return True  # explicit force: let pallas_i8.supported decide alone
-    return math.prod(dims) >= 4096
-
-
-def i8_route(dims, method: str, vals, obs0) -> bool:
-    """THE routing predicate for the int8 MXU f64 engine — the single
-    source of truth shared by the traced dispatch path (`_impl`) and the
-    eager raw entry points (`raw._i8_eligible`), so the two cannot drift.
-
-    Covers policy (auto mode, TPU backend, batch floor, MXU-vs-VPU
-    preference) and capability (`pallas_i8.supported`: shape/cost
-    admission, tracer refusal — the decomposition needs concrete values —
-    and the per-row spike gate when the table is concrete). The per-batch
-    extrapolation-depth gates stay at the call sites: they need the
-    OBSERVATION values, which differ per call."""
-    return (
-        os.environ.get("INTERPN_TPU_IMPL", "auto") == "auto"
-        and dims is not None
-        and getattr(obs0, "ndim", 1) == 1
-        and obs0.size >= MIN_PALLAS_QUERIES
-        and jax.default_backend() == "tpu"
-        and _plain_trace(obs0)
-        and _plain_trace(vals)
-        and _prefer_i8(tuple(dims), method)
-        and _pi8.supported(tuple(dims), method, vals)
-    )
-
-
-def _plain_trace(x) -> bool:
-    """True when x is a concrete array or an ordinary jit trace. Under
-    jax.grad/jvp (JVPTracer) or vmap (BatchTracer) the fused Pallas kernels
-    must not be selected: their bodies use primitives without
-    differentiation/batching rules (pltpu.repeat), and the gather/factorized
-    engines differentiate and batch natively."""
-    from jax._src.interpreters import ad, batching
-
-    return not isinstance(
-        x, (ad.JVPTracer, ad.LinearizeTracer, batching.BatchTracer)
-    )
+def impl_mode() -> str:
+    """The `INTERPN_TPU_IMPL` override, read per trace."""
+    mode = os.environ.get("INTERPN_TPU_IMPL", "auto")
+    if mode not in IMPL_MODES:
+        raise ValueError(
+            f"INTERPN_TPU_IMPL={mode!r}: expected one of {', '.join(IMPL_MODES)}"
+        )
+    return mode
 
 
 def _vals_finite(vals) -> bool:
     """Best-effort trace-time finiteness check of the grid values.
 
-    The factorized path multiplies EVERY grid value by its (zero
-    off-stencil) weight, so one inf/NaN sentinel anywhere in the grid
-    poisons every query (0 * inf = nan) — unlike the gather path, which
-    only touches the stencil. Concrete (non-traced) arrays are checked
-    here; traced values cannot be inspected, so jit callers thread the
-    flag in from the host (see raw.py / models) or accept the documented
-    caveat."""
+    Concrete arrays are checked here; traced values cannot be inspected,
+    so jit callers thread the flag in from the host (see raw.py / models)
+    or accept the documented caveat of the forced factorized engine."""
     if isinstance(vals, jax.core.Tracer):
         return True
     try:
@@ -152,199 +58,34 @@ def _vals_finite(vals) -> bool:
         return True
 
 
-def _impl(
-    dtype, nvals: int, obs0, vals_finite: bool, dims=None, method="",
-    rect: bool = False, vals_ref=None,
-) -> str:
-    """Pick the engine for one trace. `dims` is the static grid shape
-    (regular: from the dims argument; rectilinear: from the grid array
-    shapes, equally static at trace time)."""
-    mode = os.environ.get("INTERPN_TPU_IMPL", "auto")
-    if mode == "pallas":
-        # forced pallas still honors hard capability limits (dtype/ndims/
-        # VMEM/AD-compatibility); ineligible f32 traces fall back to
-        # factorized, f64 to the gather tree (an f64 einsum would hit
-        # emulated matmuls, ~400x slow)
-        if (
-            dims is not None
-            and _plain_trace(obs0)
-            and _plain_trace(vals_ref)
-            and _pv3.supported(tuple(dims), dtype, method)
-        ):
-            return "pallas"
-        mode = "factorized" if dtype == jnp.float32 else "gather"
-    if mode in ("gather", "factorized"):
-        return mode
-    if (
-        dtype == jnp.float64
-        and vals_finite
-        and getattr(obs0, "ndim", 1) == 1
-        and obs0.size >= MIN_PALLAS_QUERIES
-        and jax.default_backend() == "tpu"
-        and dims is not None
-        and _plain_trace(obs0)
-        and _plain_trace(vals_ref)
-    ):
-        # int8-multipass MXU engine first: same ~2^-47-class accuracy as
-        # the double-float VPU engine at MXU rate, when the grid is big
-        # enough for the 35 padded passes to beat 21 VPU plane-ops/cell
-        # and the (concrete) table passes the per-row spike gate
-        if i8_route(dims, method, vals_ref, obs0):
-            return "i8"
-        if _pdf.supported(tuple(dims), method):
-            # double-float contraction engine: ~1e-14 relative agreement
-            # with the f64 gather tree at 2-15x its throughput
-            # (docs/perf.md)
-            return "df64"
-    if (
-        dtype == jnp.float32
-        and vals_finite
-        and getattr(obs0, "ndim", 1) == 1  # contraction kernels assume flat obs
-        and obs0.size >= MIN_PALLAS_QUERIES
-        and jax.default_backend() == "tpu"
-    ):
-        cap = MAX_PALLAS_GRID_RECT if rect else MAX_PALLAS_GRID.get(method, 0)
-        if (
-            dims is not None
-            and nvals <= cap
-            and _plain_trace(obs0)
-            and _plain_trace(vals_ref)
-            and _pv3.supported(tuple(dims), dtype, method)
-        ):
-            return "pallas"
-        if nvals <= MAX_FACTORIZED_GRID and obs0.size >= MIN_FACTORIZED_QUERIES:
-            return "factorized"
-    return "gather"
-
-
-def _with_gather_jvp(pallas_fn, gather_fn):
-    """Wrap a fused-kernel call in jax.custom_jvp, computing tangents via
-    the differentiable gather implementation.
-
-    Trace-time tracer detection (_plain_trace) cannot catch AD applied to an
-    ALREADY-TRACED jit jaxpr (pjit's jvp rule differentiates the stored
-    jaxpr, where the pallas custom call raises NotImplementedError for
-    pltpu.repeat) — a custom JVP rule rides inside the jaxpr instead. The
-    primal stays on the fused kernel; the tangent evaluates through the
-    gather tree, which differentiates natively.
-    """
-    f = jax.custom_jvp(pallas_fn)
-
-    @f.defjvp
-    def _jvp(primals, tangents):  # noqa: ANN001
-        out = pallas_fn(*primals)
-        _, dout = jax.jvp(gather_fn, primals, tangents)
-        return out, dout
-
-    return f
-
-
-def _pallas_passes() -> int:
-    """Contraction precision for the Pallas engine. Default is the f32-exact
-    6-pass product; INTERPN_TPU_PRECISION=split (4 one-pass bf16 matmuls,
-    row-centered, ~2^-17 of local data variation) or =fast (3) trade
-    accuracy for throughput."""
-    mode = os.environ.get("INTERPN_TPU_PRECISION", "exact")
-    return {"split": 4, "fast": 3}.get(mode, 6)
-
-
-def _resolve_finite(vals, vals_finite) -> bool:
-    return _vals_finite(vals) if vals_finite is None else bool(vals_finite)
+def _impl(vals, vals_finite) -> str:
+    """Pick the engine for one trace."""
+    if impl_mode() != "factorized":
+        return "gather"
+    finite = _vals_finite(vals) if vals_finite is None else bool(vals_finite)
+    return "factorized" if finite else "gather"
 
 
 def nearest_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
-    vf = _resolve_finite(vals, vals_finite)
-    impl = _impl(
-        vals.dtype, math.prod(dims), obs[0], vf, dims, "nearest", vals_ref=vals
-    )
-    if impl == "pallas":
-        # nearest is piecewise-constant: zero tangents via the gather tree
-        prim = lambda st, sp, v, *ob: _pv3.eval_regular(
-            dims, st, sp, v, ob, "nearest", True
-        )
-        gat = lambda st, sp, v, *ob: _nearest_reg_gather(dims, st, sp, v, ob)
-        return _with_gather_jvp(prim, gat)(starts, steps, vals, *obs)
-    if impl == "factorized":
+    if _impl(vals, vals_finite) == "factorized":
         return _fz.nearest_regular_factorized(dims, starts, steps, vals, obs)
     return _nearest_reg_gather(dims, starts, steps, vals, obs)
 
 
 def nearest_rectilinear(grids, vals, obs, *, vals_finite=None):
-    dims = tuple(int(g.shape[0]) for g in grids)
-    vf = _resolve_finite(vals, vals_finite)
-    impl = _impl(
-        vals.dtype, math.prod(dims), obs[0], vf, dims, "nearest", rect=True,
-        vals_ref=vals,
-    )
-    if impl == "pallas":
-        ng = len(grids)
-        prim = lambda *a: _pv3.eval_rectilinear(a[:ng], a[ng], a[ng + 1:], "nearest", True)
-        gat = lambda *a: _nearest_rect_gather(a[:ng], a[ng], a[ng + 1:])
-        return _with_gather_jvp(prim, gat)(*grids, vals, *obs)
-    if impl == "factorized":
+    if _impl(vals, vals_finite) == "factorized":
         return _fz.nearest_rectilinear_factorized(grids, vals, obs)
     return _nearest_rect_gather(grids, vals, obs)
 
 
 def linear_regular(dims, starts, steps, vals, obs, *, vals_finite=None):
-    vf = _resolve_finite(vals, vals_finite)
-    impl = _impl(
-        vals.dtype, math.prod(dims), obs[0], vf, dims, "linear", vals_ref=vals
-    )
-    if impl == "i8":
-        # hoist the host-side table decomposition: custom_jvp TRACES the
-        # primal even on eager calls, and prepare() needs concrete values
-        prep = _pi8.prepare(tuple(dims), vals)
-        prim = lambda st, sp, v, *ob: _pi8.eval_regular(
-            dims, st, sp, v, ob, "linear", prep=prep
-        )
-        gat = lambda st, sp, v, *ob: _linear_reg_gather(dims, st, sp, v, ob)
-        return _with_gather_jvp(prim, gat)(starts, steps, vals, *obs)
-    if impl == "df64":
-        prim = lambda st, sp, v, *ob: _pdf.eval_regular(dims, st, sp, v, ob, "linear")
-        gat = lambda st, sp, v, *ob: _linear_reg_gather(dims, st, sp, v, ob)
-        return _with_gather_jvp(prim, gat)(starts, steps, vals, *obs)
-    if impl == "pallas":
-        prim = lambda st, sp, v, *ob: _pv3.eval_regular(
-            dims, st, sp, v, ob, "linear", True, _pallas_passes()
-        )
-        gat = lambda st, sp, v, *ob: _linear_reg_gather(dims, st, sp, v, ob)
-        return _with_gather_jvp(prim, gat)(starts, steps, vals, *obs)
-    if impl == "factorized":
+    if _impl(vals, vals_finite) == "factorized":
         return _fz.linear_regular_factorized(dims, starts, steps, vals, obs)
     return _linear_reg_gather(dims, starts, steps, vals, obs)
 
 
 def linear_rectilinear(grids, vals, obs, *, vals_finite=None):
-    dims = tuple(int(g.shape[0]) for g in grids)
-    vf = _resolve_finite(vals, vals_finite)
-    impl = _impl(
-        vals.dtype, math.prod(dims), obs[0], vf, dims, "linear", rect=True,
-        vals_ref=vals,
-    )
-    ng = len(grids)
-    if impl == "i8":
-        prep = _pi8.prepare(dims, vals)  # see linear_regular
-        prim = lambda *a: _pi8.eval_rectilinear(
-            a[:ng], a[ng], a[ng + 1:], "linear", prep=prep
-        )
-        gat = lambda *a: _linear_rect_gather(a[:ng], a[ng], a[ng + 1:])
-        return _with_gather_jvp(prim, gat)(*grids, vals, *obs)
-    if impl == "df64":
-        prim = lambda *a: _pdf.eval_rectilinear(a[:ng], a[ng], a[ng + 1:], "linear")
-        gat = lambda *a: _linear_rect_gather(a[:ng], a[ng], a[ng + 1:])
-        return _with_gather_jvp(prim, gat)(*grids, vals, *obs)
-    if impl == "pallas":
-        # XLA-precomputed weights beat the in-kernel rectilinear locate
-        # (counts + select-sums) — measured on v5e, docs/perf.md;
-        # re-confirmed after the round-5 locate/take cliff fix at both
-        # 20^3 (166.9 vs 142.5 Mq/s) and 100^3 (11.6 vs 10.9)
-        prim = lambda *a: _pv3.eval_rectilinear_pre(
-            a[:ng], a[ng], a[ng + 1:], "linear", True, _pallas_passes()
-        )
-        gat = lambda *a: _linear_rect_gather(a[:ng], a[ng], a[ng + 1:])
-        return _with_gather_jvp(prim, gat)(*grids, vals, *obs)
-    if impl == "factorized":
+    if _impl(vals, vals_finite) == "factorized":
         return _fz.linear_rectilinear_factorized(grids, vals, obs)
     return _linear_rect_gather(grids, vals, obs)
 
@@ -352,46 +93,7 @@ def linear_rectilinear(grids, vals, obs, *, vals_finite=None):
 def cubic_regular(
     dims, starts, steps, vals, obs, linearize_extrapolation: bool, *, vals_finite=None
 ):
-    vf = _resolve_finite(vals, vals_finite)
-    impl = _impl(
-        vals.dtype, math.prod(dims), obs[0], vf, dims, "cubic", vals_ref=vals
-    )
-    lin = bool(linearize_extrapolation)
-    if impl == "i8" and not _pi8.extrap_ok_regular(
-        dims, starts, steps, obs, "cubic", lin
-    ):
-        if any(isinstance(x, jax.core.Tracer) for x in (*obs, starts, steps)):
-            # traced obs: depth unknowable; df64 serves the common jit
-            # envelope at ~1e-13 and 2-15x gather throughput
-            impl = "df64" if _pdf.supported(tuple(dims), "cubic") else "gather"
-        else:
-            # concrete deep non-linearized extrapolation: BOTH fused f64
-            # engines degrade under the weight dynamic range + output
-            # cancellation (df64 measured WORSE than i8 on every violating
-            # config — 7D hf_sine e=6: 3.1e-9 vs 4.6e-10 rel_out,
-            # benches/exp_i8_adversarial.py); only the gather tree keeps
-            # the 1e-13 contract here
-            impl = "gather"
-    if impl == "i8":
-        prep = _pi8.prepare(tuple(dims), vals)  # see linear_regular
-        prim = lambda st, sp, v, *ob: _pi8.eval_regular(
-            dims, st, sp, v, ob, "cubic", lin, prep=prep
-        )
-        gat = lambda st, sp, v, *ob: _cubic_reg_gather(dims, st, sp, v, ob, lin)
-        return _with_gather_jvp(prim, gat)(starts, steps, vals, *obs)
-    if impl == "df64":
-        prim = lambda st, sp, v, *ob: _pdf.eval_regular(
-            dims, st, sp, v, ob, "cubic", lin
-        )
-        gat = lambda st, sp, v, *ob: _cubic_reg_gather(dims, st, sp, v, ob, lin)
-        return _with_gather_jvp(prim, gat)(starts, steps, vals, *obs)
-    if impl == "pallas":
-        prim = lambda st, sp, v, *ob: _pv3.eval_regular(
-            dims, st, sp, v, ob, "cubic", lin, _pallas_passes()
-        )
-        gat = lambda st, sp, v, *ob: _cubic_reg_gather(dims, st, sp, v, ob, lin)
-        return _with_gather_jvp(prim, gat)(starts, steps, vals, *obs)
-    if impl == "factorized":
+    if _impl(vals, vals_finite) == "factorized":
         return _fz.cubic_regular_factorized(
             dims, starts, steps, vals, obs, linearize_extrapolation
         )
@@ -399,37 +101,7 @@ def cubic_regular(
 
 
 def cubic_rectilinear(grids, vals, obs, linearize_extrapolation: bool, *, vals_finite=None):
-    dims = tuple(int(g.shape[0]) for g in grids)
-    vf = _resolve_finite(vals, vals_finite)
-    impl = _impl(
-        vals.dtype, math.prod(dims), obs[0], vf, dims, "cubic", rect=True,
-        vals_ref=vals,
-    )
-    ng = len(grids)
-    lin = bool(linearize_extrapolation)
-    if impl == "i8" and not _pi8.extrap_ok_rectilinear(grids, obs, "cubic", lin):
-        if any(isinstance(x, jax.core.Tracer) for x in (*obs, *grids)):
-            impl = "df64" if _pdf.supported(dims, "cubic") else "gather"
-        else:
-            impl = "gather"  # see cubic_regular: concrete deep extrapolation
-    if impl == "i8":
-        prep = _pi8.prepare(dims, vals)  # see linear_regular
-        prim = lambda *a: _pi8.eval_rectilinear(
-            a[:ng], a[ng], a[ng + 1:], "cubic", lin, prep=prep
-        )
-        gat = lambda *a: _cubic_rect_gather(a[:ng], a[ng], a[ng + 1:], lin)
-        return _with_gather_jvp(prim, gat)(*grids, vals, *obs)
-    if impl == "df64":
-        prim = lambda *a: _pdf.eval_rectilinear(a[:ng], a[ng], a[ng + 1:], "cubic", lin)
-        gat = lambda *a: _cubic_rect_gather(a[:ng], a[ng], a[ng + 1:], lin)
-        return _with_gather_jvp(prim, gat)(*grids, vals, *obs)
-    if impl == "pallas":
-        prim = lambda *a: _pv3.eval_rectilinear_pre(
-            a[:ng], a[ng], a[ng + 1:], "cubic", lin, _pallas_passes()
-        )
-        gat = lambda *a: _cubic_rect_gather(a[:ng], a[ng], a[ng + 1:], lin)
-        return _with_gather_jvp(prim, gat)(*grids, vals, *obs)
-    if impl == "factorized":
+    if _impl(vals, vals_finite) == "factorized":
         return _fz.cubic_rectilinear_factorized(
             grids, vals, obs, linearize_extrapolation
         )

@@ -1,28 +1,25 @@
-"""Factorized (MXU) evaluation path: interpolation as per-axis contractions.
+"""Factorized evaluation path: interpolation as per-axis contractions.
 
 Every method in this library is a LINEAR functional of the grid values: the
 result is sum over the stencil of vals[corner] * prod_k w_k[digit_k], where
 the per-axis weight vector w_k depends only on (t_k, saturation_k). The
-gather formulation fetches the 2^N/4^N corners per query; on TPU that is
-bound by the scalar gather rate (~130M elements/s measured on v5e). This
-module instead builds, per axis, a dense weight matrix W_k of shape
-(n, dims[k]) — zero except at the stencil footprint — and contracts:
+gather formulation fetches the 2^N/4^N corners per query. This module
+instead builds, per axis, a dense weight matrix W_k of shape (n, dims[k]) —
+zero except at the stencil footprint — and contracts:
 
-    y = einsum('qa,a...->q...', W_0, vals.reshape(dims))   # MXU matmul
-    y = einsum('qb,qb...->q...', W_k, y)   for k = 1..N-1  # VPU mul+reduce
+    y = einsum('qa,a...->q...', W_0, vals.reshape(dims))   # matmul
+    y = einsum('qb,qb...->q...', W_k, y)   for k = 1..N-1  # mul+reduce
 
-The first contraction is a real (n, d0) x (d0, rest) matmul that the MXU
-executes at full rate; later ones are batched multiply-reduces. Total FLOPs
-are 2*n*prod(dims) — independent of the stencil size, so cubic costs the
-same as linear here. The trade: compute scales with the grid size, so this
-path wins for small/medium grids (the reference's benchmark regime — 4..20
-points per axis) and the gather path remains for huge grids and for exact
-f64 tree-order parity.
+The first contraction is a real (n, d0) x (d0, rest) matmul; later ones are
+batched multiply-reduces. Total FLOPs are 2*n*prod(dims) — independent of
+the stencil size, so cubic costs the same as linear here, but compute
+scales with the grid size. It was built for a matrix unit; dispatch
+selects it only when forced (ops/dispatch.py).
 
 Caveat: contraction-based evaluation multiplies every grid value by its
 weight (zero off-stencil); non-finite values anywhere in the grid therefore
 poison the result (0 * inf = nan), unlike the gather path which touches only
-the stencil. Grids with inf/nan sentinels should force INTERPN_TPU_IMPL=gather.
+the stencil. The dispatcher runs the gather tree for such tables.
 
 Weight extraction is exact-by-construction: the cubic per-axis weights are
 obtained by evaluating the same saturation-aware node function used by the
@@ -105,7 +102,7 @@ _MAX_GROUPED_K = 2048
 
 
 def _split_point(dims) -> int:
-    """Number of leading axes to fold into the MXU contraction.
+    """Number of leading axes to fold into the first matmul.
 
     Choose the split minimizing the dominant per-query traffic
     (combined weight width + first intermediate width); ties prefer fewer
@@ -137,10 +134,10 @@ def _max_row_width(dims) -> int:
 def _contract(weight_mats, vals, dims):
     """Apply the per-axis contractions; weight_mats[k] is (n, dims[k]).
 
-    precision=HIGHEST is load-bearing: TPU matmuls default to one-pass bf16,
-    which silently costs ~3 decimal digits (measured 0.1-0.2 absolute error
-    on unit-scale grids — far outside f32 tolerance). HIGHEST runs the
-    full-f32 multi-pass algorithm; ~1.5x slower and correct."""
+    precision=HIGHEST is load-bearing: a default-precision f32 matmul may
+    run in a reduced-precision mode (TF32 on a GPU's tensor cores keeps
+    about three decimal digits), far outside the f32 tolerance. HIGHEST
+    keeps full f32."""
     dtype = vals.dtype
     n = weight_mats[0].shape[0]
     hp = jax.lax.Precision.HIGHEST

@@ -1,6 +1,6 @@
 """Multilinear interpolation/extrapolation, batched over query points.
 
-TPU-native re-design of the reference's flattened-tree kernels
+Batched re-design of the reference's flattened-tree kernels
 (`src/multilinear/regular.rs:296-404`, `src/multilinear/rectilinear.rs:244-346`):
 
 * All 2^N corner values are fetched with ONE batched gather: the flat base

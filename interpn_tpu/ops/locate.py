@@ -26,22 +26,18 @@ from ._gather import take1, take_small
 
 _I32 = jnp.int32
 
-# XLA:TPU's default searchsorted lowering ('scan', a binary search over
-# per-iteration dynamic takes) collapses ~50x the moment the sorted array
-# exceeds one 64-lane vreg row: measured on v5e (1M f32 queries, scan
-# sweep, /tmp-probe recorded in docs/perf.md "searchsorted cliff") the
-# default runs 981 Mq/s at 60 entries and 18.9 at 68, while
-# method='compare_all' (a branch-free broadcast compare-count, the same
-# partition_point shape the reference's bisection computes) holds
-# 870-1009 Mq/s there and stays 6-22x ahead of the default even at 16384
-# entries. All device-side bisections go through this helper.
+# Above 64 entries the bisection uses method='compare_all' (a branch-free
+# broadcast compare-count, the same partition_point shape the reference's
+# bisection computes) instead of the default 'scan'. The threshold was set
+# on a TPU, whose 'scan' lowering collapsed past 64 entries; it is not
+# measured on the GPU, and compare_all costs O(len) per query. All
+# device-side bisections go through this helper.
 _SS_SCAN_MAX = 64
 
 
 def searchsorted(grid, x, side: str = "left"):
-    """`jnp.searchsorted` with a TPU-measured method choice: the default
-    scan lowering up to 64 entries (marginally faster there), the
-    vectorized compare-count above (no cliff)."""
+    """`jnp.searchsorted` with a length-based method choice: the default
+    scan lowering up to 64 entries, the vectorized compare-count above."""
     method = "scan" if int(grid.shape[0]) <= _SS_SCAN_MAX else "compare_all"
     return jnp.searchsorted(grid, x, side=side, method=method)
 

@@ -1,6 +1,6 @@
 """Nearest-neighbor interpolation, batched over queries.
 
-TPU-native re-design of `src/nearest/regular.rs:234-316` and
+Batched re-design of `src/nearest/regular.rs:234-316` and
 `src/nearest/rectilinear.rs:193-265`: per-dimension independent selection with
 the reference's documented tie-break — the midpoint (dt == 0.5) selects the
 LOWER index (`nearest/regular.rs:283-287`). One gather per query batch.

@@ -1,6 +1,6 @@
 """1D fast-path interpolators.
 
-TPU-native equivalent of the reference's `one_dim` module
+Batched equivalent of the reference's `one_dim` module
 (`src/one_dim/mod.rs:28-187`, `linear.rs:9-86`, `hold.rs:8-108`): lightweight
 grids (regular / rectilinear) plus interpolants Linear1D, LinearHoldLast1D,
 Left1D, Right1D, Nearest1D. All evaluation is batched and branchless; the

@@ -26,7 +26,7 @@ needs exactly the 3 boundary points). The evaluation therefore reuses the
 cubic engines' 4^N gather-tree machinery (`ops/_gather.py`) with a
 PCHIP-specific axis reduction — reduced in REVERSED axis order by grouping
 the stencil list's top base-4 digit. Because the slopes are nonlinear in the
-values, no basis-weight extraction exists and there is no factorized/MXU
+values, no basis-weight extraction exists and there is no factorized
 form; the gather tree is the engine on every backend (each axis reduction is
 elementwise over queries, so it vectorizes and shards like the cubic tree).
 

@@ -4,62 +4,18 @@ Evaluates `nch` value tables that share one grid geometry at the same
 observation points, returning an (nch, n) block. The reference has no
 analogue — one table per interpolator (`src/multilinear/regular.rs:200-426`,
 `src/interpn/multilinear_regular.py:24-212`) — but the workload is common
-in production (vector fields, multi-band lookup tables, ensembles), and it
-is where the TPU design pays off hardest: the fused kernel's per-query
-weight build is the critical path for small grids (docs/perf.md roofline),
-and a stack shares ONE weight build across all channels, so channels ride
-at far below linear cost.
+(vector fields, multi-band lookup tables, ensembles).
 
-Engine selection mirrors ops.dispatch:
-
-* f32 on TPU, eligible shapes -> the fused Pallas stack kernel
-  (`pallas_v3.eval_regular_stack` / `eval_rectilinear_stack`), wrapped in
-  custom_jvp with vmapped-gather tangents like every fused route.
-* f64 on TPU with a concrete table -> a per-channel loop through the
-  single-channel dispatcher, so each channel reuses the i8/df64 engines
-  (their host-side table prep is per-channel and content-cached anyway).
-* everything else -> `jax.vmap` of the single-channel dispatcher over the
-  channel axis; under the BatchTracer the dispatcher demotes itself to the
-  natively-batching factorized/gather engines.
+Each stack is `jax.vmap` of the single-channel dispatcher (ops.dispatch)
+over the channel axis. The channels share the observation arrays, so XLA
+computes the per-query cell location and weights once.
 """
 
 from __future__ import annotations
 
-import math
-import os
-
 import jax
-import jax.numpy as jnp
 
 from . import dispatch as _d
-from . import pallas_v3 as _pv3
-from .cubic import cubic_rectilinear as _cubic_rect_gather
-from .cubic import cubic_regular as _cubic_reg_gather
-from .linear import linear_rectilinear as _linear_rect_gather
-from .linear import linear_regular as _linear_reg_gather
-from .nearest import nearest_rectilinear as _nearest_rect_gather
-from .nearest import nearest_regular as _nearest_reg_gather
-
-_GATHER = {
-    ("linear", True): lambda dims, g, v, obs, lin: _linear_reg_gather(
-        dims, *g, v, obs
-    ),
-    ("nearest", True): lambda dims, g, v, obs, lin: _nearest_reg_gather(
-        dims, *g, v, obs
-    ),
-    ("cubic", True): lambda dims, g, v, obs, lin: _cubic_reg_gather(
-        dims, *g, v, obs, lin
-    ),
-    ("linear", False): lambda dims, g, v, obs, lin: _linear_rect_gather(
-        g, v, obs
-    ),
-    ("nearest", False): lambda dims, g, v, obs, lin: _nearest_rect_gather(
-        g, v, obs
-    ),
-    ("cubic", False): lambda dims, g, v, obs, lin: _cubic_rect_gather(
-        g, v, obs, lin
-    ),
-}
 
 _SINGLE = {
     ("linear", True): lambda dims, g, v, obs, lin, vf: _d.linear_regular(
@@ -83,77 +39,13 @@ _SINGLE = {
 }
 
 
-def _use_pallas_stack(dims, nch, vals, obs0, method, rect, vf) -> bool:
-    mode = os.environ.get("INTERPN_TPU_IMPL", "auto")
-    if mode in ("gather", "factorized"):
-        return False
-    if vals.dtype != jnp.float32 or not vf:
-        return False
-    if not (_d._plain_trace(obs0) and _d._plain_trace(vals)):
-        return False
-    if getattr(obs0, "ndim", 1) != 1:
-        return False
-    if jax.default_backend() != "tpu":
-        return False
-    if not _pv3.supported_stack(tuple(dims), nch, vals.dtype, method):
-        return False
-    if mode == "pallas":
-        return True
-    if obs0.size < _d.MIN_PALLAS_QUERIES:
-        return False
-    cap = (
-        _d.MAX_PALLAS_GRID_RECT if rect else _d.MAX_PALLAS_GRID.get(method, 0)
-    )
-    # the per-channel crossover vs the vmapped fallback is MORE favorable
-    # than single-channel (shared weight build), so the single-channel cap
-    # is conservative here
-    return math.prod(dims) <= cap
-
-
 def _eval_stack(dims, grid_args, vals_stack, obs, method: str, rect: bool,
                 linearize: bool, vals_finite):
-    nch = int(vals_stack.shape[0])
-    vf = (
-        _d._vals_finite(vals_stack)
-        if vals_finite is None
-        else bool(vals_finite)
-    )
-    if _use_pallas_stack(dims, nch, vals_stack, obs[0], method, rect, vf):
-        passes = _d._pallas_passes()
-        ng = len(grid_args)
-        if rect:
-            prim = lambda *a: _pv3.eval_rectilinear_stack(
-                a[:ng], a[ng], a[ng + 1:], method, linearize, passes
-            )
-        else:
-            prim = lambda *a: _pv3.eval_regular_stack(
-                dims, a[0], a[1], a[ng], a[ng + 1:], method, linearize, passes
-            )
-        gather1 = _GATHER[(method, not rect)]
-
-        def gat(*a):
-            f = lambda v: gather1(dims, a[:ng], v, a[ng + 1:], linearize)
-            return jax.vmap(f)(a[ng])
-
-        return _d._with_gather_jvp(prim, gat)(*grid_args, vals_stack, *obs)
-
     single = _SINGLE[(method, not rect)]
-    if (
-        vals_stack.dtype == jnp.float64
-        and jax.default_backend() == "tpu"
-        and _d._plain_trace(vals_stack)
-        and not isinstance(vals_stack, jax.core.Tracer)
-        and _d._plain_trace(obs[0])
-    ):
-        # concrete f64 stack on device: loop channels through the
-        # single-channel dispatcher so each row reuses the i8/df64 engines
-        return jnp.stack(
-            [
-                single(dims, grid_args, vals_stack[c], obs, linearize, vf)
-                for c in range(nch)
-            ]
-        )
-    f = lambda v: single(dims, grid_args, v, obs, linearize, vf)
+    if vals_finite is None and _d.impl_mode() == "factorized":
+        # under vmap each channel is a tracer: check the concrete stack here
+        vals_finite = _d._vals_finite(vals_stack)
+    f = lambda v: single(dims, grid_args, v, obs, linearize, vals_finite)
     return jax.vmap(f)(vals_stack)
 
 

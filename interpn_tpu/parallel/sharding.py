@@ -1,7 +1,7 @@
 """Multi-chip evaluation: shard the observation axis over a device mesh.
 
-The reference is single-threaded CPU (SURVEY.md §2.3); the TPU-native scaling
-axis is the number of query points. Design:
+The reference is single-threaded CPU (SURVEY.md §2.3); the scaling axis here
+is the number of query points. Design:
 
 * 1D `Mesh` over all devices with axis name "obs".
 * Observation arrays are sharded `P("obs")`; grid definition arrays
@@ -12,7 +12,7 @@ axis is the number of query points. Design:
   interconnect.
 
 `sharded_evaluator` builds a jit-compiled function with those shardings baked
-in; it works on real TPU meshes and on virtual CPU meshes alike.
+in; it works on GPU meshes and on virtual CPU meshes alike.
 
 Note: the f32 factorized implementation chunks very large query batches with
 an internal lax.map whose reshape can force resharding; when driving >10^7
@@ -119,12 +119,10 @@ def sharded_evaluator(
 
     @partial(jax.jit, static_argnames=("dims",))
     def f(grid_arrays, vals, obs, dims=None):
-        # shard_map, not GSPMD auto-partitioning: the fused Pallas engines
-        # lower to custom calls that GSPMD cannot partition — under plain
-        # jit it would all-gather the queries and run the full batch on
-        # EVERY chip. shard_map runs the kernel per device on its local
-        # query shard against the replicated grid, so zero collectives is
-        # guaranteed by construction for every engine.
+        # shard_map, not GSPMD auto-partitioning: each device evaluates its
+        # local query shard against the replicated grid, so zero
+        # collectives is guaranteed by construction, whatever the engine
+        # (GSPMD may all-gather the queries around an op it cannot split).
         def local(grid_arrays, vals, obs):
             return kernel(dims, grid_arrays, vals, obs, linearize_extrapolation)
 
@@ -137,9 +135,6 @@ def sharded_evaluator(
                 tuple(P(OBS_AXIS) for _ in obs),
             ),
             out_specs=P(OBS_AXIS),
-            # pallas_call outputs don't carry varying-mesh-axis metadata;
-            # the body is collective-free by design, so skip the vma check
-            check_vma=False,
         )
         return sm(tuple(grid_arrays), vals, tuple(obs))
 
@@ -164,26 +159,11 @@ def prepared_evaluator(
 
     Closes over `grid_arrays`/`vals` at build time and returns
     ``f(obs) -> out`` (obs sharded along the obs axis, output inherits the
-    sharding). The payoff vs :func:`sharded_evaluator` is f64: under
-    ``shard_map`` the table is a tracer, so the generic path can never
-    select the int8-multipass MXU engine (its decomposition needs concrete
-    values — `ops/pallas_i8.py`) and f64 falls back to the ~12x-slower
-    double-float/gather route per chip. Here the decomposition runs ONCE at
-    build time on the concrete table (`pallas_i8.prepare`) and the prepared
-    pieces ride into the shard_map body as replicated operands, mirroring
-    how `ops.dispatch` hoists the prep for its eager custom_jvp wrapper.
-
-    Routing parity: build-time admission uses the same unified predicate as
-    the single-chip paths (`dispatch.i8_route`); the per-batch
-    extrapolation-depth gate (`pallas_i8.extrap_ok_*`) runs per call on the
-    host-visible obs, falling back to the generic evaluator when it
-    declines (deep non-linearized cubic extrapolation) or when a per-device
-    shard would be under the batch floor.
+    sharding). The extension methods (``pchip``, ``cubic_spline``,
+    ``quintic``) exist only here: the splines' collocation solve runs once
+    on the host at build time.
     """
     import jax.numpy as jnp
-
-    from ..ops import dispatch as _dispatch
-    from ..ops import pallas_i8 as _pi8
 
     if method in ("pchip", "cubic_spline", "quintic"):
         return _prepared_extension(
@@ -197,73 +177,18 @@ def prepared_evaluator(
                 "grid shape, with grid_arrays=(starts, steps)"
             )
         dims = tuple(int(d) for d in dims)
-        starts = jnp.asarray(grid_arrays[0])
-        steps = jnp.asarray(grid_arrays[1])
-        grids = None
-        garrs = (starts, steps)
+        garrs = (jnp.asarray(grid_arrays[0]), jnp.asarray(grid_arrays[1]))
     else:
-        grids = tuple(jnp.asarray(g) for g in grid_arrays)
-        dims = tuple(int(g.shape[0]) for g in grids)
-        garrs = grids
+        garrs = tuple(jnp.asarray(g) for g in grid_arrays)
+        dims = tuple(int(g.shape[0]) for g in garrs)
     vals = jnp.asarray(vals)
-    nmesh = mesh.devices.size
-
     generic = sharded_evaluator(
         mesh,
         method=method,
         regular=regular,
         linearize_extrapolation=linearize_extrapolation,
     )
-
-    # Build-time admission: the unified i8 predicate, probed with a
-    # representative per-device shard (the true per-shard size re-checks at
-    # call time below). np.empty: the probe never reads the values.
-    probe = np.empty(_dispatch.MIN_PALLAS_QUERIES, dtype=np.float64)
-    use_i8 = vals.dtype == jnp.float64 and _dispatch.i8_route(
-        dims, method, vals, probe
-    )
-    if not use_i8:
-        return lambda obs: generic(garrs, vals, obs, dims=dims)
-
-    pieces, ch, cl, sv, c0 = _pi8.prepare(dims, vals)
-
-    @jax.jit
-    def f_i8(vals, pieces, ch, cl, sv, obs):
-        def local(vals, pieces, ch, cl, sv, obs):
-            prep = (pieces, ch, cl, sv, c0)
-            if regular:
-                return _pi8.eval_regular(
-                    dims, starts, steps, vals, obs, method,
-                    linearize_extrapolation, prep=prep,
-                )
-            return _pi8.eval_rectilinear(
-                grids, vals, obs, method, linearize_extrapolation, prep=prep
-            )
-
-        sm = jax.shard_map(
-            local,
-            mesh=mesh,
-            in_specs=(P(), P(), P(), P(), P(), tuple(P(OBS_AXIS) for _ in obs)),
-            out_specs=P(OBS_AXIS),
-            check_vma=False,
-        )
-        return sm(vals, pieces, ch, cl, sv, tuple(obs))
-
-    def f(obs):
-        ok = obs[0].shape[0] // nmesh >= _dispatch.MIN_PALLAS_QUERIES and (
-            _pi8.extrap_ok_regular(
-                dims, starts, steps, obs, method, linearize_extrapolation
-            )
-            if regular
-            else _pi8.extrap_ok_rectilinear(
-                grids, obs, method, linearize_extrapolation
-            )
-        )
-        if not ok:
-            return generic(garrs, vals, obs, dims=dims)
-        return f_i8(vals, pieces, ch, cl, sv, obs)
-
-    return f
+    return lambda obs: generic(garrs, vals, obs, dims=dims)
 
 
 def _prepared_extension(mesh, grid_arrays, vals, *, dims, method, regular):
@@ -272,13 +197,10 @@ def _prepared_extension(mesh, grid_arrays, vals, *, dims, method, regular):
     These have no `sharded_evaluator` form: the splines require a CONCRETE
     value table (the not-a-knot collocation solve runs on the host,
     `ops/bspline.py`), so closing over build-time prep is the only shape
-    that works under `shard_map` — the same hoisting `prepared_evaluator`
-    does for the i8 engine. pchip needs no host prep but shares the
+    that works under `shard_map`. pchip needs no host prep but shares the
     closure pattern. Collective-free by the same construction as the
     reference families: coefficient state rides in replicated (`P()`),
     each device evaluates its local query shard, outputs stay sharded.
-    On TPU the spline shard body engages the fused pallas engine exactly
-    like the single-chip path (`ops/bspline.py::_spline_engine`).
     """
     import jax.numpy as jnp
 
@@ -351,7 +273,6 @@ def _prepared_extension(mesh, grid_arrays, vals, *, dims, method, regular):
                 tuple(P(OBS_AXIS) for _ in obs),
             ),
             out_specs=P(OBS_AXIS),
-            check_vma=False,
         )
         return sm(arrs, coeff, tuple(obs))
 
@@ -373,11 +294,8 @@ def prepared_stack_evaluator(
 
     nch value tables sharing one grid evaluate against each device's local
     query shard, with channel tables replicated and the obs axis sharded.
-    The linear-in-table methods (linear/nearest/cubic and the global
-    splines) run in one fused launch sharing a single per-query weight
-    build (`ops/stack.py`); ``pchip`` is nonlinear in the table (its
-    monotone slope limiter depends on the values), so its channels are
-    vmapped independent single-table evaluations — no shared weight build.
+    Every method vmaps the single-table evaluation over the channel axis
+    (`ops/stack.py`, `ops/bspline.py`).
     Returns ``f(obs) -> out`` with ``out`` shaped (nch, n), obs axis
     sharded. Collective-free by the same construction as the scalar
     evaluators. Typical workloads: vector fields (u, v, w at once) and
@@ -386,7 +304,7 @@ def prepared_stack_evaluator(
     `vals` carries the channel axis first — (nch, prod(dims)) or
     (nch, *dims) — and must be concrete at build time (the spline methods
     run their host collocation prep here; the reference methods probe
-    finiteness for engine admission). Extension methods follow
+    finiteness for the forced factorized engine). Extension methods follow
     `prepared_evaluator`'s closure pattern.
     """
     import jax.numpy as jnp
@@ -506,7 +424,6 @@ def prepared_stack_evaluator(
                 tuple(P(OBS_AXIS) for _ in obs),
             ),
             out_specs=P(None, OBS_AXIS),
-            check_vma=False,
         )
         return sm(arrs, coeff, tuple(obs))
 

@@ -14,7 +14,7 @@ Semantics:
   or use these shims with numpy at the boundary.
 * Grid metadata (`dims`, and the shapes of grids/vals/obs) is static: XLA
   specializes one executable per (ndims, grid shape, obs length, dtype) — the
-  TPU analogue of the reference's const-generic dispatch.
+  device analogue of the reference's const-generic dispatch.
 """
 
 from __future__ import annotations
@@ -73,9 +73,10 @@ _MAX_DIMS_MSG = (
 # ---------------------------------------------------------------------------
 
 
-# `vals_finite` is a host-computed static flag: the factorized MXU path is
-# only safe when the grid has no inf/NaN sentinels (see ops.dispatch); values
-# can't be inspected during tracing, so the flag rides in from the shims.
+# `vals_finite` is a host-computed static flag: the forced factorized engine
+# is only safe when the grid has no inf/NaN sentinels (see ops.dispatch);
+# values can't be inspected during tracing, so the flag rides in from the
+# shims.
 #
 # Each core exists in two jit wrappings: the plain one (for callers whose obs
 # arrays must stay alive — models.eval_jax hands back user device arrays) and
@@ -103,67 +104,6 @@ def _unrep_flag(starts, steps, obs):
         ok = (floc >= -_TWO63) & (floc < _TWO63)  # False for NaN too
         bad = bad | (~ok).any()
     return bad
-
-
-_unrep_flag_jit = jax.jit(_unrep_flag)
-
-
-def _i8_eligible(dims, method, vals_j, obs0) -> bool:
-    """Eager-only routing to the int8 MXU f64 engine (ops.pallas_i8).
-
-    The jitted cores below trace `vals`, and the int8 engine's host-side
-    table decomposition needs CONCRETE values — so the one place it can
-    engage is here, before the core jit, where the raw entry points (and
-    the model classes' _eval_device hooks) still hold real arrays. The
-    decision itself is `ops.dispatch.i8_route` — the ONE predicate shared
-    with the traced dispatch path, so the two cannot drift."""
-    from .ops import dispatch as _dispatch
-
-    return _dispatch.i8_route(tuple(dims), method, vals_j, obs0)
-
-
-def _i8_vals(vals, dtype):
-    """The table argument for the i8 path, or None to decline.
-
-    `vals` is the caller's HOST array (raw entry points pass it
-    pre-conversion — pallas_i8's caches then key on stable content/identity
-    instead of a fresh per-call device conversion, and an i8 hit skips the
-    table upload entirely) or the model classes' cached device array;
-    dtype-less inputs cannot reach here (_require_dtype refuses them)."""
-    if dtype is not None and dtype != jnp.float64:
-        return None
-    return vals if np.dtype(vals.dtype) == np.float64 else None
-
-
-def _try_i8_regular(dims, starts_j, steps_j, vals, obs_j, method,
-                    linearize=True, dtype=None):
-    """(result, unrep_flag) via the int8 engine, or None when ineligible."""
-    vals = _i8_vals(vals, dtype)
-    if vals is None or not _i8_eligible(dims, method, vals, obs_j[0]):
-        return None
-    from .ops import pallas_i8 as _pi8
-
-    if not _pi8.extrap_ok_regular(dims, starts_j, steps_j, obs_j, method, linearize):
-        return None  # deep non-linearized cubic extrapolation: df64/gather
-    out = _pi8.eval_regular(
-        tuple(dims), starts_j, steps_j, vals, obs_j, method, linearize
-    )
-    return out, _unrep_flag_jit(starts_j, steps_j, obs_j)
-
-
-def _try_i8_rectilinear(grids_j, vals, obs_j, method, linearize=True,
-                        dtype=None):
-    """Result via the int8 engine, or None (rectilinear kernels never
-    raise the unrepresentable error — bisection, reference parity)."""
-    dims = tuple(int(g.shape[0]) for g in grids_j)
-    vals = _i8_vals(vals, dtype)
-    if vals is None or not _i8_eligible(dims, method, vals, obs_j[0]):
-        return None
-    from .ops import pallas_i8 as _pi8
-
-    if not _pi8.extrap_ok_rectilinear(grids_j, obs_j, method, linearize):
-        return None  # see _try_i8_regular
-    return _pi8.eval_rectilinear(grids_j, vals, obs_j, method, linearize)
 
 
 def _linear_regular_impl(dims, starts, steps, vals, obs, vals_finite=True):
@@ -256,7 +196,7 @@ def _require_dtype(want: np.dtype, pairs):
     TypeError, `src/python.rs:58-80`) rather than silently casting — the
     f32 entry points would otherwise silently truncate f64 data, and
     non-array inputs (lists) are likewise refused. Device (JAX) arrays are
-    accepted when their dtype matches (documented TPU-native extension)."""
+    accepted when their dtype matches (documented device-array extension)."""
     for name, a in pairs:
         dt = getattr(a, "dtype", None)
         if dt is None:
@@ -353,17 +293,11 @@ def _host_small(out, n, *data):
 
 
 def _vals_finite_host(dtype, vals) -> bool:
-    """Host-side finiteness gate for the factorized auto-dispatch (see
-    ops.dispatch._vals_finite). Only configurations the factorized path
-    could be chosen for are scanned (f32, grid <= MAX_FACTORIZED_GRID, TPU
-    backend), so the check is O(<=2^18) once per call — negligible next to
-    the >=32768-query evals that path serves."""
-    if (
-        dtype != jnp.float32
-        or _size(vals) > ops.dispatch.MAX_FACTORIZED_GRID
-        or jax.default_backend() != "tpu"
-    ):
-        return True  # flag is unused: factorized is off for this config
+    """Host-side finiteness flag for the forced factorized engine (see
+    ops.dispatch). The table is scanned only when that engine is forced,
+    the one configuration that reads the flag."""
+    if ops.dispatch.impl_mode() != "factorized":
+        return True
     try:
         return bool(np.isfinite(np.asarray(vals)).all())
     except TypeError:
@@ -404,19 +338,12 @@ def _interpn_linear_regular(dtype, dims, starts, steps, vals, obs, out):
         dims, starts, steps, vals, obs, out
     ):
         return out
+    vf = _vals_finite_host(dtype, vals)
     core = _linear_regular_don if _fresh_obs(obs) else _linear_regular
-    starts_j, steps_j = _prep(dtype, starts, steps)
+    starts_j, steps_j, vals_j = _prep(dtype, starts, steps, vals)
     obs_j = _prep_list(dtype, obs)
-    i8 = _try_i8_regular(
-        dims, starts_j, steps_j, vals, obs_j, "linear", dtype=dtype
-    )
-    if i8 is not None:
-        result, bad = i8
-    else:
-        vf = _vals_finite_host(dtype, vals)
-        (vals_j,) = _prep(dtype, vals)
-        with _quiet_donation():
-            result, bad = core(dims, starts_j, steps_j, vals_j, obs_j, vf)
+    with _quiet_donation():
+        result, bad = core(dims, starts_j, steps_j, vals_j, obs_j, vf)
     _raise_unrep(bad)
     return _finish(result, out)
 
@@ -443,14 +370,11 @@ def _interpn_linear_rectilinear(dtype, grids, vals, obs, out):
         grids, vals, obs, out
     ):
         return out
+    vf = _vals_finite_host(dtype, vals)
     core = _linear_rectilinear_don if _fresh_obs(obs) else _linear_rectilinear
     grids_j = _prep_list(dtype, grids)
-    obs_j = _prep_list(dtype, obs)
-    i8 = _try_i8_rectilinear(grids_j, vals, obs_j, "linear", dtype=dtype)
-    if i8 is not None:
-        return _finish(i8, out)
-    vf = _vals_finite_host(dtype, vals)
     (vals_j,) = _prep(dtype, vals)
+    obs_j = _prep_list(dtype, obs)
     with _quiet_donation():
         result = core(grids_j, vals_j, obs_j, vf)
     return _finish(result, out)
@@ -546,23 +470,15 @@ def _interpn_cubic_regular(
         dims, starts, steps, vals, bool(linearize_extrapolation), obs, out
     ):
         return out
+    vf = _vals_finite_host(dtype, vals)
     core = _cubic_regular_don if _fresh_obs(obs) else _cubic_regular
-    starts_j, steps_j = _prep(dtype, starts, steps)
+    starts_j, steps_j, vals_j = _prep(dtype, starts, steps, vals)
     obs_j = _prep_list(dtype, obs)
-    i8 = _try_i8_regular(
-        dims, starts_j, steps_j, vals, obs_j, "cubic",
-        bool(linearize_extrapolation), dtype=dtype,
-    )
-    if i8 is not None:
-        result, bad = i8
-    else:
-        vf = _vals_finite_host(dtype, vals)
-        (vals_j,) = _prep(dtype, vals)
-        with _quiet_donation():
-            result, bad = core(
-                dims, starts_j, steps_j, vals_j, obs_j,
-                bool(linearize_extrapolation), vf,
-            )
+    with _quiet_donation():
+        result, bad = core(
+            dims, starts_j, steps_j, vals_j, obs_j,
+            bool(linearize_extrapolation), vf,
+        )
     _raise_unrep(bad)
     return _finish(result, out)
 
@@ -593,17 +509,11 @@ def _interpn_cubic_rectilinear(dtype, grids, vals, linearize_extrapolation, obs,
         grids, vals, bool(linearize_extrapolation), obs, out
     ):
         return out
+    vf = _vals_finite_host(dtype, vals)
     core = _cubic_rectilinear_don if _fresh_obs(obs) else _cubic_rectilinear
     grids_j = _prep_list(dtype, grids)
-    obs_j = _prep_list(dtype, obs)
-    i8 = _try_i8_rectilinear(
-        grids_j, vals, obs_j, "cubic", bool(linearize_extrapolation),
-        dtype=dtype,
-    )
-    if i8 is not None:
-        return _finish(i8, out)
-    vf = _vals_finite_host(dtype, vals)
     (vals_j,) = _prep(dtype, vals)
+    obs_j = _prep_list(dtype, obs)
     with _quiet_donation():
         result = core(
             grids_j, vals_j, obs_j, bool(linearize_extrapolation), vf

@@ -1,6 +1,6 @@
 """Small numeric helpers shared across interpn-tpu.
 
-TPU-native equivalents of the reference's `src/utils.rs:8-25` (linspace,
+Device-side equivalents of the reference's `src/utils.rs:8-25` (linspace,
 C-order meshgrid) plus stride helpers used by the gather-based kernels.
 """
 

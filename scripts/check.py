@@ -7,10 +7,8 @@ declares are implemented here from scratch and RUN locally:
    recorded for every file under `interpn_tpu/` while the full pytest
    suite runs in-process; the executable-line universe comes from each
    module's compiled code objects (`co_lines`), the same source of truth
-   coverage.py uses. Lines inside blocks marked `# pragma: no cover` or
-   `# pragma: tpu-only` (device-only dispatch branches that cannot
-   execute on the CPU backend) are excluded, exactly like coverage.py's
-   pragma convention. Gate: `--cov-fail-under` equivalent below.
+   coverage.py uses. Lines inside blocks marked `# pragma: no cover` are
+   excluded, exactly like coverage.py's pragma convention. Gate: `--cov-fail-under` equivalent below.
 2. **Stub consistency** — the typecheck stand-in for the reference's
    pyright step that matters most here: every function in `raw.pyi` must
    exist in `interpn_tpu.raw` with the same parameter names and arity,
@@ -35,14 +33,13 @@ if str(ROOT) not in sys.path:  # `python scripts/check.py` puts scripts/ first
     sys.path.insert(0, str(ROOT))
 
 # Default gate. The reference enforces 94 (its pyproject.toml:88) with the
-# native module compiled on every platform; here the TPU/pallas dispatch
-# arms are tpu-only-pragma'd and the rest must clear this bar on the CPU
-# backend alone.
+# native module compiled on every platform; here the package must clear the
+# same bar on the CPU backend alone.
 DEFAULT_MIN_COVER = 94.0
 
 
 def _pragma_excluded_lines(path: Path) -> set[int]:
-    """Lines excluded by `# pragma: no cover` / `# pragma: tpu-only`.
+    """Lines excluded by `# pragma: no cover`.
 
     A pragma on a `def`/`class`/compound-statement header excludes the
     whole block (coverage.py semantics); on a simple line, just that line.
@@ -52,7 +49,7 @@ def _pragma_excluded_lines(path: Path) -> set[int]:
     flagged = {
         i + 1
         for i, line in enumerate(lines)
-        if "# pragma: no cover" in line or "# pragma: tpu-only" in line
+        if "# pragma: no cover" in line
     }
     if not flagged:
         return set()

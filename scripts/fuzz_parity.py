@@ -3,9 +3,7 @@
 Generates random (method x grid-kind x dtype x ndims) configurations with
 queries spanning every saturation region and checks that ALL engines agree
 with each other and with the loop-based numpy oracle: the native C++
-engine, the JAX gather engine, the factorized engine (both grid kinds),
-the fused Pallas v3 engine (f32, interpret mode on CPU, exact passes), and
-the double-float Pallas engine (f64, interpret mode).
+engine, the JAX gather engine and the factorized engine (both grid kinds).
 
 Run: python scripts/fuzz_parity.py [--rounds 50] [--seed 0]
 Exit code != 0 on the first disagreement, printing a full repro.
@@ -33,23 +31,8 @@ from interpn_tpu.ops import cubic as jcubic
 from interpn_tpu.ops import factorized as fz
 from interpn_tpu.ops import linear as jlinear
 from interpn_tpu.ops import nearest as jnearest
-from interpn_tpu.ops import pallas_df64 as pdf
-from interpn_tpu.ops import pallas_i8 as pi8
-from interpn_tpu.ops import pallas_v3 as pv3
 
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-
-# Pallas kernels run in interpret mode on the CPU backend.
-_orig_pallas_call = pl.pallas_call
-
-
-def _interp_call(*args, **kwargs):
-    kwargs.setdefault("interpret", True)
-    return _orig_pallas_call(*args, **kwargs)
-
-
-pl.pallas_call = _interp_call
 
 
 def run_round(rng: np.random.Generator, idx: int) -> None:
@@ -134,24 +117,6 @@ def run_round(rng: np.random.Generator, idx: int) -> None:
                 "nearest": lambda: fz.nearest_regular_factorized(dims_t, sj, stj, vj, oj),
             }[method]()
         )
-        if dtype == np.float32 and pv3.supported(dims_t, jnp.float32, method):
-            engines["pallas_v3"] = np.asarray(
-                pv3.eval_regular(dims_t, sj, stj, vj, oj, method, linearize, 6)
-            )
-        if dtype == np.float64 and pdf.supported(dims_t, method):
-            engines["pallas_df64"] = np.asarray(
-                pdf.eval_regular(dims_t, sj, stj, vj, oj, method, linearize)
-            )
-        if (
-            dtype == np.float64
-            and pi8.supported(dims_t, method, vj)
-            # production routing declines deep non-linearized cubic
-            # extrapolation (weight-quantization floor; seed 300 round 375)
-            and pi8.extrap_ok_regular(dims_t, sj, stj, oj, method, linearize)
-        ):
-            engines["pallas_i8"] = np.asarray(
-                pi8.eval_regular(dims_t, sj, stj, vj, oj, method, linearize)
-            )
     else:
         engines["gather"] = np.asarray(
             {
@@ -167,22 +132,6 @@ def run_round(rng: np.random.Generator, idx: int) -> None:
                 "nearest": lambda: fz.nearest_rectilinear_factorized(gj, vj, oj),
             }[method]()
         )
-        if dtype == np.float32 and pv3.supported(dims_t, jnp.float32, method):
-            engines["pallas_v3"] = np.asarray(
-                pv3.eval_rectilinear(gj, vj, oj, method, linearize, 6)
-            )
-        if dtype == np.float64 and pdf.supported(dims_t, method):
-            engines["pallas_df64"] = np.asarray(
-                pdf.eval_rectilinear(gj, vj, oj, method, linearize)
-            )
-        if (
-            dtype == np.float64
-            and pi8.supported(dims_t, method, vj)
-            and pi8.extrap_ok_rectilinear(gj, oj, method, linearize)
-        ):
-            engines["pallas_i8"] = np.asarray(
-                pi8.eval_rectilinear(gj, vj, oj, method, linearize)
-            )
 
     # oracle (f64 only: loop-based reference semantics)
     if dtype == np.float64:
@@ -199,11 +148,7 @@ def run_round(rng: np.random.Generator, idx: int) -> None:
         )
 
     # Every engine takes the same two-band tolerance: strict within one
-    # cell, /100 beyond. pallas_i8 runs only where production routing
-    # admits it (extrap_ok_* above): seed 300 round 375 proved admitted
-    # SHAPES still break past ~4 cells of non-linearized cubic
-    # extrapolation (4.7e-8 on a 6400-cell 6D), so the per-batch depth
-    # gate is part of the engine's contract, not a fuzz-only carve-out.
+    # cell, /100 beyond.
     mild = np.ones(n, bool)
     for k in range(ndims):
         if regular:

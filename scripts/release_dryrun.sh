@@ -34,6 +34,6 @@ print('wheel eval ok:', out)
 ")
 
 echo "== warm-cache artifact (PGO-profile analogue) =="
-INTERPN_TPU_CACHE_DIR="$work/xla-cache" python scripts/warm_cache.py
+JAX_COMPILATION_CACHE_DIR="$work/xla-cache" python scripts/warm_cache.py
 du -sh "$work/xla-cache" 2>/dev/null || echo "(cache dir empty on this backend)"
 echo "RELEASE DRY-RUN OK"

@@ -206,7 +206,7 @@ def test_nearest_rectilinear(dtype):
 
 
 def test_eval_jax_device_path():
-    """TPU-native extension: device-array obs in, device array out, no numpy
+    """Extension: device-array obs in, device array out, no numpy
     round trip."""
     import jax
     import jax.numpy as jnp

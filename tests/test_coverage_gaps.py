@@ -252,7 +252,7 @@ def test_device_kernel_time_raises_without_matching_events(tmp_path):
 
     with pytest.raises(RuntimeError, match="no device event"):
         profiling.device_kernel_time(
-            fn, match="_pallas", log_dir=str(tmp_path / "ktrace")
+            fn, match="no_such_kernel", log_dir=str(tmp_path / "ktrace")
         )
 
 
@@ -271,24 +271,19 @@ def test_testing_helpers():
 # ---------------------------------------------------------------------------
 
 
-def test_forced_pallas_falls_back_off_tpu(monkeypatch):
-    """INTERPN_TPU_IMPL=pallas on an ineligible trace: f32 falls to
-    factorized, f64 to gather (hard capability limits honored)."""
+@pytest.mark.parametrize("mode", ["pallas", "fast", ""])
+def test_impl_mode_rejects_unknown_value(monkeypatch, mode):
+    """INTERPN_TPU_IMPL takes auto, gather or factorized; any other value
+    (including the removed "pallas") is refused at trace time instead of
+    silently running another engine."""
     from interpn_tpu.ops import dispatch
 
-    monkeypatch.setenv("INTERPN_TPU_IMPL", "pallas")
-    big = jnp.zeros(10**6, jnp.float32)
-    f64 = jnp.zeros(10**6, jnp.float64)
-    # CPU backend: pallas ineligible -> documented fallbacks
-    assert dispatch._impl(jnp.float32, 8000, big, True, (20,) * 3, "cubic") in (
-        "pallas", "factorized",
-    )
-    assert dispatch._impl(jnp.float64, 8000, f64, True, None, "cubic") == "gather"
-    # 1D grids are never pallas-eligible
-    assert (
-        dispatch._impl(jnp.float32, 20, big, True, (20,), "linear")
-        == "factorized"
-    )
+    monkeypatch.setenv("INTERPN_TPU_IMPL", mode)
+    with pytest.raises(ValueError, match="INTERPN_TPU_IMPL"):
+        dispatch.linear_regular(
+            (4, 4), jnp.zeros(2), jnp.ones(2), jnp.zeros(16),
+            (jnp.zeros(3), jnp.zeros(3)),
+        )
 
 
 def test_interpn_f32_all_method_arms():
@@ -306,71 +301,50 @@ def test_interpn_f32_all_method_arms():
             assert out.dtype == np.float32 and np.all(np.isfinite(out))
 
 
-def test_dispatch_engine_arms_interpret_mode(monkeypatch):
-    """Every dispatch arm that wraps a fused engine (pallas nearest/linear,
-    df64 linear/cubic, rectilinear twins) executes end-to-end in interpret
-    mode with the backend spoofed — real behavior for the TPU-only arms."""
-    from jax.experimental import pallas as pl
-
-    from interpn_tpu.ops import dispatch
-
-    orig_call = pl.pallas_call
-
-    def interp_call(*args, **kwargs):
-        kwargs.setdefault("interpret", True)
-        return orig_call(*args, **kwargs)
-
-    monkeypatch.setattr(pl, "pallas_call", interp_call)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
-    n = 20
-    rng = itesting.rng_fixed_seed(13)
+def _forced_arm_case(n, seed):
+    rng = itesting.rng_fixed_seed(seed)
     x = np.arange(float(n))
     vals64 = rng.standard_normal(n * n)
-    vals32 = vals64.astype(np.float32)
     nq = 2048
     obs64 = tuple(jnp.asarray(rng.uniform(0, n - 1.0, nq)) for _ in range(2))
-    obs32 = tuple(o.astype(jnp.float32) for o in obs64)
-    j64 = jnp.asarray
-    dims = (n, n)
-    st, sp = jnp.zeros(2), jnp.ones(2)
-    g32 = (jnp.asarray(x, jnp.float32),) * 2
-    g64 = (j64(x),) * 2
+    return x, vals64, obs64
 
-    checks = [
-        # (engine call, gather reference, tol)
-        (lambda: dispatch.nearest_regular(
-            dims, st.astype(jnp.float32), sp.astype(jnp.float32),
-            jnp.asarray(vals32), obs32),
-         lambda: dispatch.nearest_regular(
-            dims, st.astype(jnp.float32), sp.astype(jnp.float32),
-            jnp.asarray(vals32), obs32, vals_finite=False), 0.0),
-        (lambda: dispatch.nearest_rectilinear(g32, jnp.asarray(vals32), obs32),
-         lambda: dispatch.nearest_rectilinear(
-            g32, jnp.asarray(vals32), obs32, vals_finite=False), 0.0),
-        (lambda: dispatch.linear_regular(
-            dims, st.astype(jnp.float32), sp.astype(jnp.float32),
-            jnp.asarray(vals32), obs32),
-         lambda: dispatch.linear_regular(
-            dims, st.astype(jnp.float32), sp.astype(jnp.float32),
-            jnp.asarray(vals32), obs32, vals_finite=False), 1e-5),
-        (lambda: dispatch.linear_regular(
-            dims, st, sp, j64(vals64), obs64),
-         lambda: dispatch.linear_regular(
-            dims, st, sp, j64(vals64), obs64, vals_finite=False), 1e-13),
-        (lambda: dispatch.linear_rectilinear(g64, j64(vals64), obs64),
-         lambda: dispatch.linear_rectilinear(
-            g64, j64(vals64), obs64, vals_finite=False), 1e-13),
-        (lambda: dispatch.cubic_rectilinear(g64, j64(vals64), obs64, True),
-         lambda: dispatch.cubic_rectilinear(
-            g64, j64(vals64), obs64, True, vals_finite=False), 1e-12),
+
+def _family_calls(dims, x, vals, obs, dtype):
+    st, sp = jnp.zeros(2, dtype), jnp.ones(2, dtype)
+    g = (jnp.asarray(x, dtype),) * 2
+    v = jnp.asarray(vals, dtype)
+    ob = tuple(o.astype(dtype) for o in obs)
+    from interpn_tpu.ops import dispatch
+
+    return [
+        lambda: dispatch.nearest_regular(dims, st, sp, v, ob),
+        lambda: dispatch.nearest_rectilinear(g, v, ob),
+        lambda: dispatch.linear_regular(dims, st, sp, v, ob),
+        lambda: dispatch.linear_rectilinear(g, v, ob),
+        lambda: dispatch.cubic_regular(dims, st, sp, v, ob, True),
+        lambda: dispatch.cubic_rectilinear(g, v, ob, True),
     ]
-    for fused, gather, tol in checks:
-        a, b = np.asarray(fused()), np.asarray(gather())
-        if tol == 0.0:
-            assert np.array_equal(a, b)
-        else:
-            np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
+
+
+def test_dispatch_forced_factorized_arms(monkeypatch):
+    """Every family's forced factorized arm matches its auto (gather) arm:
+    exactly for nearest, at dtype rounding for the contractions."""
+    n = 20
+    x, vals64, obs64 = _forced_arm_case(n, 13)
+    for dtype, tol in ((jnp.float32, 1e-5), (jnp.float64, 1e-12)):
+        calls = _family_calls((n, n), x, vals64, obs64, dtype)
+        auto = [np.asarray(fn()) for fn in calls]
+        monkeypatch.setenv("INTERPN_TPU_IMPL", "factorized")
+        try:
+            forced = [np.asarray(fn()) for fn in calls]
+        finally:
+            monkeypatch.delenv("INTERPN_TPU_IMPL")
+        for i, (a, b) in enumerate(zip(forced, auto)):
+            if i < 2:
+                assert np.array_equal(a, b)
+            else:
+                np.testing.assert_allclose(a, b, rtol=tol, atol=tol)
 
 
 # ---------------------------------------------------------------------------
@@ -477,69 +451,18 @@ def test_interpn_extensions_non_view_out(method):
     np.testing.assert_allclose(np.asarray(user_out), ref, rtol=0, atol=0)
 
 
-def test_dispatch_i8_and_factorized_arms_interpret_mode(monkeypatch):
-    """The eager i8 MXU arms (linear regular/rectilinear, cubic
-    rectilinear) and the forced-factorized fallbacks execute end-to-end
-    with the backend spoofed. 64x64 clears the i8 cost model's MXU
-    preference where the 20x20 grid of the sibling test declines."""
-    from jax.experimental import pallas as pl
-
-    from interpn_tpu.ops import dispatch
-
-    orig_call = pl.pallas_call
-
-    def interp_call(*args, **kwargs):
-        kwargs.setdefault("interpret", True)
-        return orig_call(*args, **kwargs)
-
-    monkeypatch.setattr(pl, "pallas_call", interp_call)
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-
+def test_dispatch_forced_factorized_nonfinite_table_runs_gather(monkeypatch):
+    """A forced factorized call on a table holding inf still returns the
+    gather tree's result (0 * inf would poison every query): queries whose
+    stencil avoids the sentinel stay finite on every family arm."""
     n = 64
-    rng = itesting.rng_fixed_seed(29)
-    x = np.arange(float(n))
-    vals64 = rng.standard_normal(n * n)
-    nq = 2048
-    obs64 = tuple(jnp.asarray(rng.uniform(0, n - 1.0, nq)) for _ in range(2))
-    obs32 = tuple(o.astype(jnp.float32) for o in obs64)
-    j = jnp.asarray
-    dims = (n, n)
-    st, sp = jnp.zeros(2), jnp.ones(2)
-    g64 = (j(x),) * 2
-    g32 = (j(x, jnp.float32),) * 2
-    assert dispatch.i8_route(dims, "linear", j(vals64), obs64[0])
-
-    def gather_ref(fn):
-        monkeypatch.setenv("INTERPN_TPU_IMPL", "gather")
-        try:
-            return np.asarray(fn())
-        finally:
-            monkeypatch.delenv("INTERPN_TPU_IMPL")
-
-    cases = [
-        # (auto-routed engine arm, tolerance vs gather)
-        (lambda: dispatch.linear_regular(dims, st, sp, j(vals64), obs64),
-         1e-12),
-        (lambda: dispatch.linear_rectilinear(g64, j(vals64), obs64), 1e-12),
-        (lambda: dispatch.cubic_rectilinear(g64, j(vals64), obs64, True),
-         5e-11),
-        # f32 rectilinear cubic: the pallas pre-weights arm
-        (lambda: dispatch.cubic_rectilinear(
-            g32, j(vals64, jnp.float32), obs32, True), 5e-4),
-    ]
-    for fn, tol in cases:
-        got = np.asarray(fn())
-        ref = gather_ref(fn)
-        scale = np.abs(ref).max() + 1.0
-        np.testing.assert_allclose(got, ref, rtol=0, atol=tol * scale)
-
-    # forced-factorized fallback arms
+    x, vals64, obs64 = _forced_arm_case(n, 29)
+    vals64[-1] = np.inf  # far corner; queries below sit away from it
+    obs = tuple(o * 0.5 for o in obs64)
+    calls = _family_calls((n, n), x, vals64, obs, jnp.float64)
+    auto = [np.asarray(fn()) for fn in calls]
     monkeypatch.setenv("INTERPN_TPU_IMPL", "factorized")
-    for fn in (
-        lambda: dispatch.nearest_regular(dims, st, sp, j(vals64), obs64),
-        lambda: dispatch.nearest_rectilinear(g64, j(vals64), obs64),
-        lambda: dispatch.linear_regular(dims, st, sp, j(vals64), obs64),
-        lambda: dispatch.linear_rectilinear(g64, j(vals64), obs64),
-        lambda: dispatch.cubic_rectilinear(g64, j(vals64), obs64, True),
-    ):
-        assert np.isfinite(np.asarray(fn())).all()
+    for fn, ref in zip(calls, auto):
+        got = np.asarray(fn())
+        assert np.isfinite(got).all()
+        np.testing.assert_array_equal(got, ref)

@@ -46,5 +46,5 @@ def test_every_docs_page_scanned():
 )
 def test_doc_block_executes(path, idx, info, code):
     if "notest" in info.split():
-        pytest.skip(f"{path.name} block {idx} marked notest (TPU-only)")
+        pytest.skip(f"{path.name} block {idx} marked notest (needs a GPU)")
     exec(compile(code, f"{path.name}:block{idx}", "exec"), {"__name__": "__doctest__"})

@@ -1,11 +1,12 @@
-"""Factorized (MXU) path: parity with the gather path on all four families,
+"""Factorized path: parity with the gather path on all four families,
 including saturation regions, both extrapolation modes, and the chunked
-query loop."""
+query loop, plus the engine-selection rule (ops/dispatch.py)."""
 
 import numpy as np
 import pytest
 
 import interpn_tpu  # noqa: F401  (x64 setup)
+import jax
 import jax.numpy as jnp
 
 from interpn_tpu.ops import cubic, factorized as fz, linear
@@ -100,18 +101,17 @@ def test_chunked_query_loop(monkeypatch):
 def test_dispatch_env_override(monkeypatch):
     big = jnp.zeros((10**6,))
     monkeypatch.setenv("INTERPN_TPU_IMPL", "factorized")
-    assert dispatch._impl(jnp.float64, 10**9, big, True) == "factorized"
+    assert dispatch._impl(big, True) == "factorized"
     monkeypatch.setenv("INTERPN_TPU_IMPL", "gather")
-    assert dispatch._impl(jnp.float32, 8, big, True) == "gather"
+    assert dispatch._impl(big, True) == "gather"
     monkeypatch.delenv("INTERPN_TPU_IMPL")
-    # auto: f64 never factorized; f32 only on TPU backends
-    assert dispatch._impl(jnp.float64, 8000, big, True) == "gather"
-    # shaped (non-flat) obs never take the factorized path
-    shaped = jnp.zeros((1000, 1000), jnp.float32)
-    assert dispatch._impl(jnp.float32, 8000, shaped, True) == "gather"
-    # non-finite grid values always force the gather path (sentinel safety)
-    flat = jnp.zeros(10**6, jnp.float32)
-    assert dispatch._impl(jnp.float32, 8000, flat, False) == "gather"
+    # auto: the gather tree for every table
+    assert dispatch._impl(big, True) == "gather"
+    assert dispatch._impl(jnp.zeros(8000, jnp.float32), True) == "gather"
+    # non-finite grid values keep the gather path even when forced
+    monkeypatch.setenv("INTERPN_TPU_IMPL", "factorized")
+    assert dispatch._impl(big, False) == "gather"
+    assert dispatch._impl(big.at[3].set(jnp.nan), None) == "gather"
 
 
 def test_gather_path_shape_polymorphic():
@@ -188,99 +188,102 @@ def test_nonfinite_grid_forces_gather():
     assert m2._dev_cache()[-1] is True
 
 
-def test_dispatch_engine_selection_policy(monkeypatch):
-    """Engine choice per (dtype, grid size, query count, method), with the
-    backend forced to 'tpu' so the policy itself is what's under test."""
-    import jax
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.float64])
+def test_dispatch_engine_selection_policy(monkeypatch, dtype):
+    """Auto selection is the gather tree at every grid size and batch the
+    factorized engine once served (20^3 and 100^3 grids, 512 to 10^6
+    queries), in both dtypes; only the override selects factorized."""
+    from interpn_tpu.ops import factorized as fz_mod
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    big = jnp.zeros(10**6, jnp.float32)
-    mid = jnp.zeros(10_000, jnp.float32)
-    tiny = jnp.zeros(512, jnp.float32)
-    f64 = jnp.zeros(10**6, jnp.float64)
-
-    impl = dispatch._impl
-    # f32: pallas from 1024 queries when the grid fits
-    assert impl(jnp.float32, 8000, big, True, (20, 20, 20), "cubic") == "pallas"
-    assert impl(jnp.float32, 8000, mid, True, (20, 20, 20), "cubic") == "pallas"
-    assert impl(jnp.float32, 8000, tiny, True, (20, 20, 20), "cubic") == "gather"
-    # mid-size batches below the factorized floor but pallas-eligible
-    assert impl(jnp.float32, 8000, mid, True, None, "cubic") == "gather"
-    # large grids: cubic keeps pallas (VMEM cap), nearest crosses to gather
-    assert impl(jnp.float32, 10**6, big, True, (100,) * 3, "cubic") == "pallas"
-    assert impl(jnp.float32, 10**6, big, True, (100,) * 3, "nearest") == "gather"
-    # rectilinear flag lifts the per-method caps
-    assert (
-        impl(jnp.float32, 10**6, big, True, (100,) * 3, "nearest", rect=True)
-        == "pallas"
+    calls = []
+    for name in ("linear_regular_factorized", "cubic_regular_factorized"):
+        real = getattr(fz_mod, name)
+        monkeypatch.setattr(
+            fz_mod, name,
+            lambda *a, _r=real, **k: calls.append(1) or _r(*a, **k),
+        )
+    for d, n in (((20, 20, 20), 512), ((20, 20, 20), 40_000), ((100,) * 3, 1 << 17)):
+        shape = jax.ShapeDtypeStruct((n,), dtype)
+        vals = jax.ShapeDtypeStruct((int(np.prod(d)),), dtype)
+        st = jax.ShapeDtypeStruct((3,), dtype)
+        for fn in (
+            lambda s, p, v, *o: dispatch.linear_regular(d, s, p, v, o),
+            lambda s, p, v, *o: dispatch.cubic_regular(d, s, p, v, o, True),
+        ):
+            jax.eval_shape(fn, st, st, vals, shape, shape, shape)
+    assert calls == []
+    monkeypatch.setenv("INTERPN_TPU_IMPL", "factorized")
+    d = (20, 20, 20)
+    jax.eval_shape(
+        lambda s, p, v, *o: dispatch.linear_regular(d, s, p, v, o, vals_finite=True),
+        st, st, jax.ShapeDtypeStruct((8000,), dtype), shape, shape, shape,
     )
-    # f64: int8 MXU engine at big grids (vals None -> shape gate only),
-    # double-float VPU engine at small ones, gather otherwise
-    assert impl(jnp.float64, 8000, f64, True, (20, 20, 20), "cubic") == "i8"
-    assert impl(jnp.float64, 96, f64, True, (8, 12), "cubic") == "df64"
-    # round 3: 4D/5D f64 cubic on device (i8 or the looped df64 kernel)
-    assert impl(jnp.float64, 160000, f64, True, (20,) * 4, "cubic") == "i8"
-    assert impl(jnp.float64, 12**5, f64, True, (12,) * 5, "cubic") == "i8"
-    # a spiky table fails the i8 row gate -> looped df64 kernel
-    spiky = np.ones(160000)
-    spiky[7] = 1e9
-    assert (
-        impl(jnp.float64, 160000, f64, True, (20,) * 4, "cubic",
-             vals_ref=jnp.asarray(spiky))
-        == "df64"
+    assert calls == [1]
+
+
+def test_dispatch_reads_no_backend_name(monkeypatch):
+    """Engine choice depends only on the call's inputs and the override:
+    with jax.default_backend made to raise, every family still dispatches,
+    auto and forced."""
+    def _no_backend():
+        raise AssertionError("dispatch read the backend name")
+
+    monkeypatch.setattr(jax, "default_backend", _no_backend)
+    rng = np.random.default_rng(4)
+    dims = (6, 7)
+    st, sp = jnp.zeros(2), jnp.ones(2)
+    grids = tuple(jnp.arange(float(d)) for d in dims)
+    vals = jnp.asarray(rng.standard_normal(42))
+    obs = tuple(jnp.asarray(rng.uniform(-1, d, 64)) for d in dims)
+    for mode in ("auto", "gather", "factorized"):
+        monkeypatch.setenv("INTERPN_TPU_IMPL", mode)
+        outs = [
+            dispatch.nearest_regular(dims, st, sp, vals, obs),
+            dispatch.nearest_rectilinear(grids, vals, obs),
+            dispatch.linear_regular(dims, st, sp, vals, obs),
+            dispatch.linear_rectilinear(grids, vals, obs),
+            dispatch.cubic_regular(dims, st, sp, vals, obs, True),
+            dispatch.cubic_rectilinear(grids, vals, obs, False),
+        ]
+        assert all(np.isfinite(np.asarray(o)).all() for o in outs)
+
+
+def test_forced_factorized_through_raw_and_classes(monkeypatch):
+    """The override reaches the factorized engine through the raw entry
+    points and the class device path, and the host-side finiteness scan
+    runs only while it is forced (the one case that reads the flag)."""
+    import interpn_tpu as it
+    from interpn_tpu import raw
+    from interpn_tpu.ops import factorized as fz_mod
+
+    monkeypatch.setenv("INTERPN_TPU_NATIVE", "0")
+    calls = []
+    real = fz_mod.linear_regular_factorized
+    monkeypatch.setattr(
+        fz_mod, "linear_regular_factorized",
+        lambda *a, **k: calls.append(1) or real(*a, **k),
     )
-    # 4D linear: i8 MXU contraction now beats the 16-gathers/query tree
-    assert impl(jnp.float64, 160000, f64, True, (20,) * 4, "linear") == "i8"
-    assert impl(jnp.float64, 8000, f64, True, (20, 20, 20), "nearest") == "gather"
-    # non-finite grids always fall to gather
-    assert impl(jnp.float32, 8000, big, False, (20, 20, 20), "cubic") == "gather"
-
-
-def test_nearest_pallas_cap_at_measured_crossover(monkeypatch):
-    """The nearest-method pallas ceiling sits at the MEASURED ~50k-cell
-    crossover vs the gather path (VERDICT r2 weak #3): a 36^3 = 46,656-cell
-    grid must route to pallas; a 40^3 = 64,000-cell grid falls past the cap
-    (to the factorized engine at this batch size)."""
-    import jax
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    big = jnp.zeros(10**6, jnp.float32)
-    impl = dispatch._impl
-    assert impl(jnp.float32, 36**3, big, True, (36,) * 3, "nearest") == "pallas"
-    assert impl(jnp.float32, 40**3, big, True, (40,) * 3, "nearest") != "pallas"
-
-
-def test_precision_env_threads_through_dispatch(monkeypatch):
-    """INTERPN_TPU_PRECISION reaches the pallas engine THROUGH the dispatch
-    layer (VERDICT r2 weak #6): _pallas_passes maps the env var, and
-    dispatch.linear_regular forwards the mapped pass count to the engine."""
-    import jax
-
-    assert dispatch._pallas_passes() == 6
-    monkeypatch.setenv("INTERPN_TPU_PRECISION", "split")
-    assert dispatch._pallas_passes() == 4
-    monkeypatch.setenv("INTERPN_TPU_PRECISION", "fast")
-    assert dispatch._pallas_passes() == 3
-    monkeypatch.setenv("INTERPN_TPU_PRECISION", "unknown")
-    assert dispatch._pallas_passes() == 6
-
-    monkeypatch.setenv("INTERPN_TPU_PRECISION", "split")
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    seen = {}
-
-    def fake_eval_regular(dims, st, sp, v, ob, method, lin, passes=6):
-        seen["passes"] = passes
-        return ob[0]
-
-    monkeypatch.setattr(dispatch._pv3, "eval_regular", fake_eval_regular)
-    dims = (20, 20, 20)
-    vals = jnp.zeros(8000, jnp.float32)
-    obs = (jnp.zeros(4096, jnp.float32),) * 3
-    out = dispatch.linear_regular(
-        dims, jnp.zeros(3, jnp.float32), jnp.ones(3, jnp.float32), vals, obs
+    bad = np.zeros(16)
+    bad[5] = np.inf
+    assert raw._vals_finite_host(jnp.float64, bad) is True  # not forced: no scan
+    monkeypatch.setenv("INTERPN_TPU_IMPL", "factorized")
+    assert raw._vals_finite_host(jnp.float64, bad) is False
+    # shapes no other test traces: the override is read per trace, and a
+    # cached executable keeps the engine it was traced with
+    rng = np.random.default_rng(8)
+    vals = rng.standard_normal(77)
+    obs = [rng.uniform(0, 6, 37) for _ in range(2)]
+    out = np.zeros(37)
+    raw.interpn_linear_regular_f64(
+        np.array([7, 11]), np.zeros(2), np.ones(2), vals, obs, out
     )
-    jax.block_until_ready(out)
-    assert seen["passes"] == 4
+    assert calls == [1]
+    m = it.MultilinearRegular.new([7, 11], np.zeros(2), np.ones(2), vals)
+    obs2 = [o[:31] for o in obs]  # a new shape: the class path traces anew
+    got = m.eval(obs2)
+    assert len(calls) == 2
+    monkeypatch.delenv("INTERPN_TPU_IMPL")
+    np.testing.assert_allclose(out[:31], got, rtol=1e-12, atol=1e-12)
 
 
 def test_nonfinite_sentinel_grid_evaluates_correctly_end_to_end():

@@ -289,12 +289,12 @@ def test_interpn_pchip_extension():
 
 def test_pchip_value_nonlinearity_pins_no_fused_engine():
     """pchip is NONLINEAR in the value table: f(a*v1 + b*v2) differs from
-    a*f(v1) + b*f(v2). Every fused/MXU engine here evaluates weights(x) @
-    table — a LINEAR functional of the table — so none can represent pchip,
+    a*f(v1) + b*f(v2). A contraction engine evaluates weights(x) @ table — a
+    LINEAR functional of the table — so none can represent pchip,
     and the precomputed-slope "separable Hermite" proposal only matches the
     last-reduced axis (slopes elsewhere depend on already-reduced, hence
     query-dependent, values). This pins the dispatch decision: gather tree
-    on every backend (benches/exp_pchip.py has the measured rates)."""
+    on every backend."""
     rng = np.random.default_rng(77)
     dims = (6, 6)
     g = [np.arange(d, dtype=float) for d in dims]

@@ -176,15 +176,13 @@ def test_no_allocation_growth_across_repeated_eval():
     assert len(jax.live_arrays()) == base
 
 
-def test_grad_never_selects_pallas(monkeypatch):
-    """jax.grad / jax.jvp / jax.vmap traces must route to the differentiable
-    engines even when the fused Pallas kernel would otherwise be selected
-    (its body uses primitives without AD/batching rules — running the
-    gradient example on real TPU hardware raised NotImplementedError before
-    this gate)."""
+def test_grad_and_vmap_route_to_gather_tree(monkeypatch):
+    """jax.grad, jax.vmap and plain jit traces all take the gather tree in
+    auto mode, and the gradient equals the one taken through the gather
+    tree directly."""
     import interpn_tpu.ops.dispatch as dispatch
+    from interpn_tpu.ops import cubic as gc
 
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     dims = (20, 20, 20)
     starts = jnp.zeros(3, jnp.float32)
     steps = jnp.full(3, 0.5, jnp.float32)
@@ -199,21 +197,24 @@ def test_grad_never_selects_pallas(monkeypatch):
 
     monkeypatch.setattr(dispatch, "_impl", spy)
 
-    def f(x):
-        obs = (x * jnp.ones(2048), jnp.ones(2048), jnp.ones(2048))
-        return jnp.sum(ops.cubic_regular(dims, starts, steps, vals, obs, True))
+    def f(x, fn=ops.cubic_regular):
+        obs = (x * jnp.linspace(0.0, 9.0, 2048), jnp.ones(2048), jnp.ones(2048))
+        return jnp.sum(fn(dims, starts, steps, vals, obs, True))
 
-    jax.make_jaxpr(jax.grad(f))(jnp.float32(1.0))
-    assert seen and all(impl != "pallas" for impl in seen), seen
+    g = jax.grad(f)(jnp.float32(0.7))
+    assert seen and all(impl == "gather" for impl in seen), seen
+    np.testing.assert_allclose(
+        float(g), float(jax.grad(lambda x: f(x, gc.cubic_regular))(jnp.float32(0.7))),
+        rtol=1e-6,
+    )
     seen.clear()
     jax.make_jaxpr(jax.vmap(lambda v: ops.cubic_regular(
         dims, starts, steps, v, (jnp.ones(2048),) * 3, True
     )))(jnp.zeros((2, 8000), jnp.float32))
-    assert seen and all(impl != "pallas" for impl in seen), seen
+    assert seen and all(impl == "gather" for impl in seen), seen
     seen.clear()
-    # plain jit still selects pallas
     jax.make_jaxpr(f)(jnp.float32(1.0))
-    assert "pallas" in seen, seen
+    assert seen == ["gather"], seen
 
 
 def test_leaf_event_total_sums_siblings_not_parents(tmp_path):
@@ -228,26 +229,26 @@ def test_leaf_event_total_sums_siblings_not_parents(tmp_path):
     d = tmp_path / "plugins" / "profile" / "run"
     d.mkdir(parents=True)
     events = [
-        {"ph": "X", "name": "jit__pallas_wrap", "pid": 1, "tid": 1, "ts": 0, "dur": 100},
-        {"ph": "X", "name": "_pallas_main", "pid": 1, "tid": 1, "ts": 5, "dur": 30},
-        {"ph": "X", "name": "_pallas_main", "pid": 1, "tid": 1, "ts": 40, "dur": 30},
-        {"ph": "X", "name": "_pallas_tail", "pid": 1, "tid": 1, "ts": 75, "dur": 10},
+        {"ph": "X", "name": "jit__kernel_wrap", "pid": 1, "tid": 1, "ts": 0, "dur": 100},
+        {"ph": "X", "name": "_kernel_main", "pid": 1, "tid": 1, "ts": 5, "dur": 30},
+        {"ph": "X", "name": "_kernel_main", "pid": 1, "tid": 1, "ts": 40, "dur": 30},
+        {"ph": "X", "name": "_kernel_tail", "pid": 1, "tid": 1, "ts": 75, "dur": 10},
         # a different lane must not be treated as a parent of lane 1 events
-        {"ph": "X", "name": "_pallas_other_lane", "pid": 1, "tid": 2, "ts": 0, "dur": 7},
+        {"ph": "X", "name": "_kernel_other_lane", "pid": 1, "tid": 2, "ts": 0, "dur": 7},
         # non-matching events are ignored entirely
         {"ph": "X", "name": "copy_done", "pid": 1, "tid": 1, "ts": 6, "dur": 2},
     ]
     with gzip.open(d / "host.trace.json.gz", "wt") as f:
         json.dump({"traceEvents": events}, f)
-    assert _leaf_event_total(str(tmp_path), "_pallas") == 30 + 30 + 10 + 7
+    assert _leaf_event_total(str(tmp_path), "_kernel") == 30 + 30 + 10 + 7
 
     # coincident duplicates: neither vanishes
     with gzip.open(d / "host.trace.json.gz", "wt") as f:
         json.dump(
             {"traceEvents": [
-                {"ph": "X", "name": "_pallas_a", "pid": 1, "tid": 1, "ts": 0, "dur": 5},
-                {"ph": "X", "name": "_pallas_a", "pid": 1, "tid": 1, "ts": 0, "dur": 5},
+                {"ph": "X", "name": "_kernel_a", "pid": 1, "tid": 1, "ts": 0, "dur": 5},
+                {"ph": "X", "name": "_kernel_a", "pid": 1, "tid": 1, "ts": 0, "dur": 5},
             ]},
             f,
         )
-    assert _leaf_event_total(str(tmp_path), "_pallas") == 10
+    assert _leaf_event_total(str(tmp_path), "_kernel") == 10
